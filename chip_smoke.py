@@ -15,10 +15,12 @@ seeded random weights):
 Every kernel's launch count is read right after that run and must be > 0.
 Then the partitioned outputs are held against a whole-graph run with the
 same kernels (exactly equal) and against the whole graph with each kernel
-replaced by its plain PyTorch version, fp32 inside with TF32 off (bf16
-tolerance, 3e-2).  Each kernel is held against its plain version at the
-main path's shapes and timed with CUDA events beside its plain version, its
-bound from the card's peak figures and, for attention,
+replaced by its plain PyTorch version with TF32 off and bf16 activations
+between layers, as the graph has them (bf16 tolerance, 3e-2 absolute plus
+3e-2 relative); the distance to the all-fp32 plain graph is printed.
+Each kernel is held against its plain version at the main path's shapes
+and timed with CUDA events beside its plain version, its bound from the
+card's peak figures and, for attention,
 ``scaled_dot_product_attention`` as a yardstick.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` from the repo root; ``--out``
@@ -72,18 +74,24 @@ def time_ms(fn, runs: int = 20) -> float:
 
 
 def check_close(what: str, got, want) -> float:
-    """Max abs error of ``got`` against ``want``; raises past |d| <= TOL +
-    TOL * |want|."""
+    """Max abs error of ``got`` against ``want``; raises unless they agree
+    within ``TOL`` absolute plus ``TOL`` relative."""
     import torch
     got, want = got.float(), want.float()
-    if not torch.isfinite(got).all():
-        raise RuntimeError(f"{what}: non-finite values")
-    err = (got - want).abs()
-    bad = err > TOL + TOL * want.abs()
-    if bad.any():
-        raise RuntimeError(f"{what}: {int(bad.sum())} values outside "
-                           f"{TOL} (max abs err {err.max().item():.4g})")
-    return err.max().item()
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL,
+                               msg=lambda m: f"{what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def moved_bytes(*tensors) -> float:
+    """Bytes a call must move when each input is read once and each output
+    written once: tensors that share storage (``q = k = v``, or ``b = c``
+    as views of ``x``) are counted once, at the widest of their spans."""
+    spans: dict[int, int] = {}
+    for t in tensors:
+        key = t.untyped_storage().data_ptr()
+        spans[key] = max(spans.get(key, 0), t.numel() * t.element_size())
+    return float(sum(spans.values()))
 
 
 def main() -> int:
@@ -224,13 +232,17 @@ def main() -> int:
         plain = plain_graph(x)
         plain_f32 = plain_graph(x.float())
     graph_err = check_close("graph output vs plain", whole, plain)
-    f32_err = (whole.float() - plain_f32).abs().max().item()
+    # reported, not checked: the graph rounds its activations to bf16
+    # between layers, which the all-fp32 plain graph does not
+    f32_diff = (whole.float() - plain_f32).abs()
+    f32_out = int((f32_diff > TOL + TOL * plain_f32.abs()).sum())
     print(f"graph output {tuple(whole.shape)} {whole.dtype}: equal across "
           f"{list(outputs)} partitions and the whole-graph run; max abs err "
-          f"vs the plain versions {graph_err:.4g} (tol {TOL}); vs the plain "
-          f"versions with fp32 activations {f32_err:.4g} (not checked: "
-          f"bf16 rounding between layers)")
-    del plain, plain_f32
+          f"vs the plain versions {graph_err:.4g} (tol {TOL} abs + {TOL} "
+          f"rel); vs the plain versions with fp32 activations "
+          f"{f32_diff.max().item():.4g}, {f32_out} of {f32_diff.numel()} "
+          f"values outside the tolerance (not checked)")
+    del plain, plain_f32, f32_diff
 
     # -- per kernel at the main path's shapes -----------------------------
     attn_node = next(n for n in graph.nodes if n.kernel == "flash_attention")
@@ -252,7 +264,7 @@ def main() -> int:
         qt, qt, qt, is_causal=True))
     pairs = S * (S + 1) // 2                 # unmasked (q, k) pairs, causal
     flops = 4.0 * B * H * HD * pairs
-    nbytes = 4.0 * q.numel() * q.element_size()   # q, k, v read; o written
+    nbytes = moved_bytes(q, q, q, got)            # q = k = v read; o written
     kernels.append(("flash_attention", "flash_attention.py:122",
                     f"q=k=v {tuple(q.shape)} bf16 causal, block_q={bq} "
                     f"block_k={bk}", err, ms, plain_ms, flops, nbytes, lib_ms))
@@ -274,9 +286,7 @@ def main() -> int:
     L, nc = min(chunk, S), -(-S // min(chunk, S))
     tri = L * (L + 1) // 2                   # causal (i, j) pairs per chunk
     flops = 2.0 * B * H * nc * (tri * STATE + tri * HD + 2 * L * STATE * HD)
-    elt = xs.element_size()
-    nbytes = float(xs.numel() * elt * 2 + la.numel() * elt
-                   + 2 * bc.numel() * elt + fin.numel() * 4)
+    nbytes = moved_bytes(xs, la, bc, bc, y, fin)
     kernels.append(("ssd_scan", "ssd_scan.py:93",
                     f"x {tuple(xs.shape)} bf16, b=c {tuple(bc.shape)}, "
                     f"chunk={chunk}; final-state max abs err {fin_err:.4g}",

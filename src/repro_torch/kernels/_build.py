@@ -42,7 +42,7 @@ SIGNATURES = {
                          _P],
                         "fa_error_string"),
     "ssd_scan": ("ssd_forward",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                   ctypes.c_longlong, _P],
                  "ssd_error_string"),
 }

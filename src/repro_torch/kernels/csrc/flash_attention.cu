@@ -8,8 +8,9 @@
 // q tile are skipped; a row with no unmasked key gives zeros.
 //
 // What bounds it on this card: at the main path's shapes (S = 4096, 32
-// heads, head_dim 80, causal) the work is ~86 GFLOP against ~84 MB of q, k,
-// v and o, so the ideal kernel is bound by operations (bf16 tensor cores).
+// heads, head_dim 80, causal) the work is ~86 GFLOP against ~42 MB of q (=
+// k = v on the main path) and o, so the ideal kernel is bound by operations
+// (bf16 tensor cores).
 // This first kernel does every product as fp32 FMA on the CUDA cores (no
 // TF32, no tensor cores), so it is bound by the CUDA cores' FMA rate and by
 // the shared-memory reads that feed them.

@@ -9,8 +9,9 @@
 // output.  Steps past S behave as padding with log_a = 0 and x = b = c = 0.
 //
 // What bounds it on this card: at the main path's shapes (S = 4096, 32
-// heads, P = 80, N = 64, chunk 128) the work is ~7.5 GFLOP against ~76 MB
-// moved, so the ideal kernel is bound by bytes.  This first kernel runs its
+// heads, P = 80, N = 64, chunk 128) the work is ~7.5 GFLOP against ~43 MB
+// moved (x, log_a, y and the fp32 final state; the node's b = c are views of
+// x), so the ideal kernel is bound by bytes.  This first kernel runs its
 // products as fp32 FMA on the CUDA cores and, with one CTA per (batch,
 // head), has only B*H = 32 CTAs in flight on 132 SMs: it is bound by the
 // FMA rate of the 32 SMs it occupies.
@@ -42,9 +43,11 @@ inline size_t ssd_smem_floats(int L, int P, int N) {
          + 3 * (size_t)L;            // seg, exp(seg), exp(total - seg)
 }
 
-template <class T>
+// T: the dtype of x, b, c and y; A: the dtype of log_a, which may differ
+// (the node hands over bf16, a caller may keep its decays in fp32)
+template <class T, class A>
 __global__ void __launch_bounds__(kThreads)
-    ssd_kernel(const T* __restrict__ x, const float* __restrict__ la,
+    ssd_kernel(const T* __restrict__ x, const A* __restrict__ la,
                const T* __restrict__ bm, const T* __restrict__ cm,
                T* __restrict__ y, float* __restrict__ fin, int S, int H, int P,
                int N, Strides xs, Strides as, Strides bs, Strides cs,
@@ -62,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int h = blockIdx.x, b = blockIdx.y;
   const T* xb = x + b * xs.b + h * xs.h;
-  const float* ab = la + b * as.b + h * as.h;
+  const A* ab = la + b * as.b + h * as.h;
   const T* bb = bm + b * bs.b + h * bs.h;
   const T* cb = cm + b * cs.b + h * cs.h;
   T* yb = y + b * ys.b + h * ys.h;
@@ -85,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
       Cs[i * bn + n] = in ? to_float(cb[(t0 + i) * cs.s + n]) : 0.f;
     }
     for (int i = threadIdx.x; i < L; i += blockDim.x)
-      seg[i] = i < rows ? ab[(t0 + i) * as.s] : 0.f;
+      seg[i] = i < rows ? to_float(ab[(t0 + i) * as.s]) : 0.f;
     __syncthreads();
     if (threadIdx.x == 0) {  // inclusive cumulative sum of log_a
       float run = 0.f;
@@ -140,19 +143,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = threadIdx.x; idx < N * P; idx += blockDim.x) fb[idx] = St[idx];
 }
 
-template <class T>
-int launch(const void* x, const float* la, const void* bm, const void* cm,
+template <class T, class A>
+int launch(const void* x, const void* la, const void* bm, const void* cm,
            void* y, float* fin, int B, int S, int H, int P, int N,
            const long long* st, int L, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ssd_kernel<T, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const Strides xs{st[0], st[1], st[2]}, as{st[3], st[4], st[5]},
       bs{st[6], st[7], st[8]}, cs{st[9], st[10], st[11]},
       ys{st[12], st[13], st[14]};
   const dim3 grid(H, B);
-  ssd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), la, static_cast<const T*>(bm),
+  ssd_kernel<T, A><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const A*>(la),
+      static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<T*>(y), fin, S, H, P, N, xs, as,
       bs, cs, ys, L);
   return (int)cudaGetLastError();
@@ -161,30 +166,40 @@ int launch(const void* x, const float* la, const void* bm, const void* cm,
 }  // namespace
 }  // namespace repro_torch
 
-// x: (B, S, H, P); log_a: (B, S, H) fp32; b, c: (B, S, H, N); y: (B, S, H,
-// P) in x's dtype; final_state: (B, H, N, P) fp32, contiguous.  x, b, c, y
-// share one dtype and have a contiguous last axis.  strides: 15 element
-// strides, (batch, sequence, head) for x, log_a, b, c, y in that order.
+// x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H, N); y: (B, S, H, P)
+// in x's dtype; final_state: (B, H, N, P) fp32, contiguous.  x, b, c, y
+// share the dtype code `dtype` and have a contiguous last axis; log_a has
+// the dtype code `la_dtype`.  strides: 15 element strides, (batch,
+// sequence, head) for x, log_a, b, c, y in that order.
 // smem_bytes is the caller's footprint figure and must equal this file's.
 // Returns a cudaError_t code (0 on success).
 extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
                            const void* c, void* y, void* final_state,
-                           int dtype, int B, int S, int H, int P, int N,
-                           const long long* strides, int L,
+                           int dtype, int la_dtype, int B, int S, int H,
+                           int P, int N, const long long* strides, int L,
                            long long smem_bytes, void* stream) {
   using namespace repro_torch;
   const size_t smem = ssd_smem_floats(L, P, N) * sizeof(float);
   if ((long long)smem != smem_bytes) return (int)cudaErrorInvalidValue;
-  const float* la = static_cast<const float*>(log_a);
   float* fin = static_cast<float*>(final_state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch<float>(x, la, b, c, y, fin, B, S, H, P, N, strides, L,
-                           smem, s);
-    case kBFloat16:
-      return launch<__nv_bfloat16>(x, la, b, c, y, fin, B, S, H, P, N,
-                                   strides, L, smem, s);
+  using bf16 = __nv_bfloat16;
+  if ((dtype != kFloat32 && dtype != kBFloat16) ||
+      (la_dtype != kFloat32 && la_dtype != kBFloat16))
+    return (int)cudaErrorInvalidValue;
+  switch (dtype * 2 + la_dtype) {
+    case kFloat32 * 2 + kFloat32:
+      return launch<float, float>(x, log_a, b, c, y, fin, B, S, H, P, N,
+                                  strides, L, smem, s);
+    case kFloat32 * 2 + kBFloat16:
+      return launch<float, bf16>(x, log_a, b, c, y, fin, B, S, H, P, N,
+                                 strides, L, smem, s);
+    case kBFloat16 * 2 + kFloat32:
+      return launch<bf16, float>(x, log_a, b, c, y, fin, B, S, H, P, N,
+                                 strides, L, smem, s);
+    case kBFloat16 * 2 + kBFloat16:
+      return launch<bf16, bf16>(x, log_a, b, c, y, fin, B, S, H, P, N,
+                                strides, L, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -51,9 +51,10 @@ def ssd_scan(x, log_a, b, c, *, chunk=128):
 def _launch(x, log_a, b, c, chunk):
     global launches
     if x.dtype not in _build.DTYPE_CODES or b.dtype != x.dtype or \
-            c.dtype != x.dtype:
+            c.dtype != x.dtype or log_a.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"ssd_scan kernel takes float32 or bfloat16 x, b, c "
-                         f"of one dtype, got {x.dtype}, {b.dtype}, {c.dtype}")
+                         f"of one dtype and a float32 or bfloat16 log_a, got "
+                         f"{x.dtype}, {b.dtype}, {c.dtype}, {log_a.dtype}")
     if not (log_a.device == b.device == c.device == x.device):
         raise ValueError("x, log_a, b, c must be on one device")
     B, S, H, P = x.shape
@@ -66,14 +67,14 @@ def _launch(x, log_a, b, c, chunk):
                          f"{nbytes} B of shared memory; the card allows "
                          f"{limit} B")
     x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
-    la = log_a.float()     # the kernel reads log_a in fp32 (a no-op for fp32)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fin = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     lib = _build.library("ssd_scan")
     code = lib.ssd_forward(
-        x.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+        x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), fin.data_ptr(), _build.DTYPE_CODES[x.dtype],
-        B, S, H, P, N, _build.strides(x, la, b, c, y), L, nbytes,
+        _build.DTYPE_CODES[log_a.dtype], B, S, H, P, N,
+        _build.strides(x, log_a, b, c, y), L, nbytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
     launches += 1

@@ -111,11 +111,13 @@ def test_flash_attention_raises_on_unsupported_dtype(cuda):
     (1, 257, 2, 32, 16, 128),
     (1, 1024, 4, 80, 64, 32),                   # zamba2 widths
 ])
-def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
+@pytest.mark.parametrize("la_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
+                                       la_dtype):
     rng = np.random.default_rng(2)
     x = _randn(rng, (B, S, H, P), dtype, cuda)
     log_a = -torch.nn.functional.softplus(
-        _randn(rng, (B, S, H), torch.float32, cuda))
+        _randn(rng, (B, S, H), torch.float32, cuda)).to(la_dtype)
     b = _randn(rng, (B, S, H, N), dtype, cuda)
     c = _randn(rng, (B, S, H, N), dtype, cuda)
     before = ssd_mod.launches
@@ -123,7 +125,7 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype):
     torch.cuda.synchronize()
     assert ssd_mod.launches == before + 1
     assert y.dtype == dtype and fin.dtype == torch.float32
-    y_ref, fin_ref = ssd_ref(x.float(), log_a, b.float(), c.float(),
+    y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
                              chunk=chunk)
     _close(y, y_ref, SSD_TOL[dtype])
     _close(fin, fin_ref, SSD_TOL[torch.float32])
