@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
-SOURCES = ("flash_attention", "ssd_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,10 @@ SIGNATURES = {
                          _I, _I, _I, _I, ctypes.c_float, ctypes.c_longlong,
                          _P],
                         "fa_error_string"),
+    "decode_attention": ("da_forward",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                          _I, _I, _I, ctypes.c_float, ctypes.c_longlong, _P],
+                         "da_error_string"),
     "ssd_scan": ("ssd_forward",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                   ctypes.c_longlong, _P],
@@ -127,6 +131,8 @@ def check(name: str, code: int) -> None:
 
 
 def strides(*tensors: torch.Tensor) -> ctypes.Array:
-    """(batch, sequence, head) element strides of each tensor, flattened."""
+    """The first three element strides of each tensor, flattened: (batch,
+    sequence, head) of a (B, S, H, ...) tensor, (batch, head, 1) of a
+    (B, H, hd) one."""
     vals = [t.stride(i) for t in tensors for i in range(3)]
     return (ctypes.c_longlong * len(vals))(*vals)

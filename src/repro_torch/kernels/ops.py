@@ -12,15 +12,18 @@ the CPU and on ``meta`` while the graph is traced.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from .decode_attention import decode_attention, smem_bytes as _da_smem
 from .flash_attention import flash_attention, smem_bytes as _fa_smem
 from .ssd_scan import smem_bytes as _ssd_smem, ssd_scan
 from .substrate import DEFAULT_PARAMS
 
-__all__ = ["flash_attention", "ssd_scan", "flash_attention_node",
-           "ssd_scan_node", "smem_footprint"]
+__all__ = ["flash_attention", "decode_attention", "ssd_scan",
+           "flash_attention_node", "decode_attention_node", "ssd_scan_node",
+           "smem_footprint"]
 
 
 def smem_footprint(kernel: str, params: dict, args, options=None) -> int:
@@ -29,6 +32,10 @@ def smem_footprint(kernel: str, params: dict, args, options=None) -> int:
     x = tuple(args[0].shape)
     if kernel == "flash_attention":            # q = k = v = x
         return _fa_smem(params, (x, x))
+    if kernel == "decode_attention":           # q = x, the cache in options
+        o = options or {}
+        k = (x[0], o["cache_len"], o["kv_heads"], x[2])
+        return _da_smem(params, (x, k), args[0].dtype)
     if kernel == "ssd_scan":                   # b = c = x[..., :state_dim]
         n = (options or {}).get("state_dim", 16)
         return _ssd_smem(params, (x, (*x[:-1], n)))
@@ -61,6 +68,53 @@ def flash_attention_node(name="flash_attention", *, causal=True, window=None,
     return _layer_node(name, "attention", "flash_attention", factory, params,
                        {"causal": causal, "window": window,
                         "softcap": softcap}, device)
+
+
+def decode_attention_node(name="decode_attention", *, cache_len, kv_heads,
+                          head_dim, batch=1, softcap=None, params=None, seed=0,
+                          cache=None, device="cuda"):
+    """Decode step over a fixed (batch, cache_len, kv_heads, head_dim) KV
+    cache, every row ``cache_len`` long; the node input is the (batch, H,
+    hd) query batch.
+
+    The cache is ``cache=(k, v)``, or standard normals drawn once in fp32
+    on ``device`` from a ``torch.Generator`` seeded with ``seed`` (k, then
+    v).  It is converted to the input's dtype and device once per (dtype,
+    device) and kept, so timed runs move only what the kernel moves; under
+    shape tracing on ``meta`` it follows the input, as ``dense_node``'s
+    weight does.  ``cache`` and ``device`` are not kernel options: the
+    tuner's config key stays the JAX node's.
+    """
+    dev = resolve_device(device)
+    shape = (batch, cache_len, kv_heads, head_dim)
+    if cache is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cache = tuple(torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(2))
+    elif len(cache) != 2 or any(tuple(c.shape) != shape for c in cache):
+        raise ValueError(f"cache must be two {shape} tensors, got "
+                         f"{[tuple(c.shape) for c in cache]}")
+    held = {}
+
+    def cache_for(x):
+        key = (x.dtype, x.device)
+        if key not in held:
+            held[key] = (*(c.to(x.device, x.dtype) for c in cache),
+                         torch.full((batch,), cache_len, dtype=torch.int32,
+                                    device=x.device))
+        return held[key]
+
+    def factory(p):
+        def apply(q):
+            k, v, lengths = cache_for(q)
+            return decode_attention(q, k, v, lengths, softcap=softcap,
+                                    block_k=p["block_k"])
+        return apply
+
+    return _layer_node(name, "attention", "decode_attention", factory, params,
+                       {"cache_len": cache_len, "kv_heads": kv_heads,
+                        "head_dim": head_dim, "softcap": softcap,
+                        "seed": seed}, device)
 
 
 def ssd_scan_node(name="ssd_scan", *, state_dim=16, params=None,

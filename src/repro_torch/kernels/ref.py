@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each repeats its kernel's arithmetic in float32 with whole-tensor ops: the
-wrappers in ``flash_attention.py`` / ``ssd_scan.py`` call them for tensors
-on the CPU (the tests) and on ``meta`` (shape tracing), and ``chip_smoke.py``
-holds each CUDA kernel against them on the card.  They define the kernels'
-semantics where those differ from the TPU package's oracles: a fully masked
-attention row gives zeros, not NaN.
+wrappers in ``flash_attention.py`` / ``decode_attention.py`` /
+``ssd_scan.py`` call them for tensors on the CPU (the tests) and on ``meta``
+(shape tracing), and ``chip_smoke.py`` holds each CUDA kernel against them
+on the card.  They define the kernels' semantics where those differ from
+the TPU package's oracles: a fully masked attention row (a decode row with
+``length == 0`` included) gives zeros, not NaN.
 """
 
 from __future__ import annotations
@@ -15,6 +16,15 @@ import math
 import torch
 
 from .substrate import pad_axis_to, round_up
+
+
+def _softmax(s):
+    """Softmax over the last axis of masked (-inf) scores; a row with every
+    entry masked gives zeros (the kernels' l == 0 case), not NaN."""
+    m = s.amax(dim=-1, keepdim=True).clamp_min(torch.finfo(torch.float32).min)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return p / torch.where(l == 0, torch.ones_like(l), l)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None):
@@ -38,14 +48,32 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None):
         mask &= qpos >= kpos
     if window is not None:
         mask &= qpos - kpos < window
-    s = s.masked_fill(~mask, -math.inf)
-    # softmax with an all-masked row -> zeros (the kernel's l == 0 case)
-    m = s.amax(dim=-1, keepdim=True).clamp_min(torch.finfo(torch.float32).min)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(l == 0, torch.ones_like(l), l)
+    p = _softmax(s.masked_fill(~mask, -math.inf))
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths, *, softcap=None):
+    """One new token per sequence against a KV cache.
+
+    q: (B, H, hd); k, v: (B, Smax, Hk, hd) with H % Hk == 0; lengths: (B,)
+    int32, the valid cache entries of each row (keys at ``kpos < length``).
+    Query head h reads kv head ``h // (H // Hk)``.  Returns (B, H, hd) in
+    q's dtype; a row with ``length == 0`` gives zeros.
+    """
+    B, H, hd = q.shape
+    Smax, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, Hk, G, hd)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(Smax, device=q.device)
+    mask = kpos[None, :] < lengths.to(q.device)[:, None]          # (B, Smax)
+    p = _softmax(s.masked_fill(~mask[:, None, None, :], -math.inf))
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)
 
 
 def ssd_ref(x, log_a, b, c, *, chunk=128):

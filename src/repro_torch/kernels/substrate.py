@@ -5,9 +5,9 @@
   block boundary exactly as the TPU kernels do (the CUDA kernels mask the
   ragged edge themselves and need no padded copy).
 * **Block-size autotuner** — :class:`KernelAutotuner` sweeps
-  ``(block_q, block_k)`` / ``chunk`` candidates per (kernel, shape,
-  resource), caches the winner, and rewrites tunable graph nodes in place
-  so the benchmark providers measure *tuned* kernel timings.  Winners are
+  ``(block_q, block_k)`` / ``block_k`` / ``chunk`` candidates per (kernel,
+  shape, resource), caches the winner, and rewrites tunable graph nodes in
+  place so the benchmark providers measure *tuned* kernel timings.  Winners are
   carried into ``BenchmarkDB`` records (``BlockBenchmark.tuned_params``),
   which is what the partition/query engines consume.
 
@@ -63,11 +63,13 @@ DEFAULT_CANDIDATES: dict[str, list[dict[str, int]]] = {
     "flash_attention": [{"block_q": bq, "block_k": bk}
                         for bq in (64, 128, 256)
                         for bk in (64, 128, 256)],
+    "decode_attention": [{"block_k": bk} for bk in (128, 256, 512)],
     "ssd_scan": [{"chunk": c} for c in (32, 64, 128, 256)],
 }
 
 DEFAULT_PARAMS: dict[str, dict[str, int]] = {
     "flash_attention": {"block_q": 128, "block_k": 128},
+    "decode_attention": {"block_k": 256},
     "ssd_scan": {"chunk": 128},
 }
 

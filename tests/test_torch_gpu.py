@@ -7,18 +7,21 @@ import).  The file imports no JAX, so it runs on a GPU host that has none:
     PYTHONPATH=src python -m pytest tests/test_torch_gpu.py -m gpu
 
 Inputs come from numpy with a seed.  Tolerances: fp32 2e-5 for attention
-and 2e-4 for the SSD scan (its outputs sum hundreds of terms of magnitude
-~10), bf16 3e-2, as in tests/test_kernels.py; the plain versions run in
-fp32 with TF32 off.
+(prefill and decode) and 2e-4 for the SSD scan (its outputs sum hundreds of
+terms of magnitude ~10), bf16 3e-2, as in tests/test_kernels.py; the plain
+versions run in fp32 with TF32 off.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     flash_attention_ref, ssd_ref)
+from repro_torch.kernels.substrate import card_smem_limit
 
 pytestmark = pytest.mark.gpu
 
@@ -152,3 +155,89 @@ def test_ssd_scan_refuses_oversized_chunk(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         ssd_mod.ssd_scan(x, la, b, b, chunk=256)
     assert ssd_mod.launches == before
+
+
+def _decode_inputs(seed, B, Smax, H, Hk, hd, dtype, device, lengths=None):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, H, hd), dtype, device)
+    k = _randn(rng, (B, Smax, Hk, hd), dtype, device)
+    v = _randn(rng, (B, Smax, Hk, hd), dtype, device)
+    if lengths is None:           # 0, 1 and Smax first, the rest at random
+        lengths = [0, 1, Smax][:B] + \
+            rng.integers(0, Smax + 1, size=max(0, B - 3)).tolist()
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+def _fitting_block_ks(q, k, device):
+    limit = card_smem_limit(device)
+    return [bk for bk in (32, 128, 256, 512)
+            if da_mod.smem_bytes({"block_k": bk}, (q.shape, k.shape),
+                                 q.dtype) <= limit]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,H,Hk,hd,softcap", [
+    (2, 512, 4, 4, 64, None),                   # MHA
+    (4, 1024, 8, 2, 64, None),                  # GQA 4:1
+    (3, 512, 8, 1, 128, None),                  # MQA, a group of 8
+    (3, 300, 4, 2, 64, None),                   # uneven cache
+    (3, 200, 2, 2, 64, None),                   # Smax < block_k
+    (4, 1024, 8, 2, 64, 30.0),                  # softcap
+    (3, 256, 12, 1, 64, None),                  # a group cut into 8 + 4
+    (3, 256, 6, 2, 32, None),                   # a group of 3, padded to 4
+    (3, 1024, 4, 2, 256, None),                 # head_dim 256
+    (6, 4096, 32, 8, 128, None),                # granite-8b heads
+    (72, 256, 8, 8, 64, None),                  # a grid large enough unsplit
+])
+def test_decode_attention_kernel_matches_plain(cuda, B, Smax, H, Hk, hd,
+                                               softcap, dtype):
+    q, k, v, lengths = _decode_inputs(4, B, Smax, H, Hk, hd, dtype, cuda)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), lengths,
+                                softcap=softcap)
+    block_ks = _fitting_block_ks(q, k, cuda)
+    assert block_ks
+    for bk in block_ks:
+        before = da_mod.launches
+        got = da_mod.decode_attention(q, k, v, lengths, softcap=softcap,
+                                      block_k=bk)
+        torch.cuda.synchronize()
+        assert da_mod.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _close(got, want, TOL[dtype])
+        assert (got[lengths == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_random_lengths(cuda, dtype):
+    """Lengths drawn over the whole of [0, Smax], with 0, 1 and Smax."""
+    q, k, v, lengths = _decode_inputs(5, 16, 777, 8, 2, 128, dtype, cuda)
+    assert {0, 1, 777} <= set(lengths.tolist())
+    got = da_mod.decode_attention(q, k, v, lengths, block_k=128)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+    _close(got, want, TOL[dtype])
+
+
+def test_decode_attention_masking_exact(cuda):
+    """Entries past a row's length are never read."""
+    q, k, v, lengths = _decode_inputs(6, 3, 1000, 8, 2, 64, torch.float32,
+                                      cuda, lengths=[300, 0, 999])
+    got = da_mod.decode_attention(q, k, v, lengths, block_k=128)
+    k2, v2 = k.clone(), v.clone()
+    for row, n in enumerate(lengths.tolist()):
+        k2[row, n:] = 1e6
+        v2[row, n:] = float("nan")
+    got2 = da_mod.decode_attention(q, k2, v2, lengths, block_k=128)
+    assert torch.equal(got, got2)
+    assert (got[1] == 0).all() and torch.isfinite(got).all()
+
+
+def test_decode_attention_refuses_oversized_tiles(cuda):
+    q = torch.zeros((2, 32, 128), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((2, 4096, 8, 128), device=cuda, dtype=torch.bfloat16)
+    lengths = torch.full((2,), 4096, dtype=torch.int32, device=cuda)
+    before = da_mod.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        da_mod.decode_attention(q, k, k, lengths, block_k=512)
+    with pytest.raises(ValueError, match="one dtype"):
+        da_mod.decode_attention(q, k.float(), k, lengths)
+    assert da_mod.launches == before

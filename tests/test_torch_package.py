@@ -18,7 +18,9 @@ from repro_torch.core import (Link, NetworkModel, Resource, Scission,
 from repro_torch.core.lattice.chain import PartitionConfig, Segment
 from repro_torch.core.resources import CLOUD_VM
 from repro_torch.kernels import (KernelAutotuner, _build,
-                                 flash_attention_node, ssd_scan_node)
+                                 decode_attention_node, flash_attention_node,
+                                 ssd_scan_node)
+from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.runtime import PipelineExecutor
@@ -85,6 +87,8 @@ _ENTRY_POINTS = {
     "PipelineExecutor": lambda **kw: PipelineExecutor(_graph(), _config(),
                                                       **kw),
     "flash_attention_node": lambda **kw: flash_attention_node(**kw),
+    "decode_attention_node": lambda **kw: decode_attention_node(
+        cache_len=8, kv_heads=1, head_dim=8, **kw),
     "ssd_scan_node": lambda **kw: ssd_scan_node(**kw),
     "to_torch": lambda **kw: convert.to_torch({"w": np.zeros(2)}, **kw),
 }
@@ -101,7 +105,7 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, name):
 def test_cpu_scission_loop_launches_no_kernel():
     """The whole loop on the CPU takes the plain versions: no launch is
     counted and no CUDA library is built or loaded."""
-    fa_mod.launches = ssd_mod.launches = 0
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
     libs = dict(_build._libs)
     graph = _graph()
     res = [Resource("edge1", "edge", CLOUD_VM, speed_factor=2.0),
@@ -122,7 +126,7 @@ def test_cpu_scission_loop_launches_no_kernel():
     for blk in fuse_blocks(graph):
         whole = blk.make_callable()(whole)
     assert torch.equal(y, whole) and len(timings) == len(best.segments)
-    assert fa_mod.launches == 0 and ssd_mod.launches == 0
+    assert fa_mod.launches == ssd_mod.launches == da_mod.launches == 0
     assert _build._libs == libs
     assert all(r.vmem_limit is None and not r.pruned
                for r in tuner.records.values())
