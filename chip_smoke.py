@@ -30,7 +30,10 @@ whose outputs are far smaller than that, at limits scaled to the output
 path's shapes and timed with CUDA events, as device time (the host's
 launch overhead excluded) and per call (included), beside its plain
 version, its bound from the card's peak figures and, for attention,
-``scaled_dot_product_attention`` as a yardstick.
+``scaled_dot_product_attention`` as a yardstick.  The flash row also gives
+the registers and spills of the bf16 tensor-core instances at the path's
+head_dim from the ``-Xptxas -v`` log, their HMMA instructions in the SASS
+(there must be some) and their SASS opcode mix.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` from the repo root; ``--out``
 also writes the BenchmarkDBs and autotuner records there.  The last line of
@@ -47,6 +50,7 @@ import os
 import statistics
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -228,6 +232,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
 
     from repro_torch.core import TensorSpec
     from repro_torch.kernel_graph import kernel_graph
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -303,8 +308,27 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     pairs = S * (S + 1) // 2                 # unmasked (q, k) pairs, causal
     flops = 4.0 * B * H * HD * pairs
     nbytes = moved_bytes(q, q, q, got)            # q = k = v read; o written
+    # the bf16 instances at this head_dim (the launch ran one of them):
+    # their ptxas report and their tensor-core instructions in the SASS
+    ptxas = fa_mod.mma_instances(_build.ptxas_report("flash_attention"))
+    sass = fa_mod.mma_instances(_build.sass_opcodes("flash_attention"))
+    hmma = min(ops["HMMA"] for ops in sass[HD])
+    if not hmma:
+        raise RuntimeError(f"flash_attention: a bf16 instance at head_dim "
+                           f"{HD} has no HMMA instruction in its SASS")
+    mix = sum(sass[HD], Counter())
+    print(f"flash_attention bf16 instances at head_dim {HD}: "
+          f"{len(sass[HD])}; SASS {sum(mix.values())} instructions, "
+          + ", ".join(f"{op} {n}" for op, n in mix.most_common(16)))
     kernels.append(dict(
         name="flash_attention", tpu="flash_attention.py:122",
+        design="mma.sync bf16",
+        build=dict(registers=max(e["registers"] for e in ptxas[HD]),
+                   spill_stores=max(e["spill_stores"] for e in ptxas[HD]),
+                   hmma=hmma,
+                   spilling_head_dims=sorted(
+                       hd for hd, es in ptxas.items()
+                       if any(e["spill_stores"] for e in es))),
         shapes=f"q=k=v {tuple(q.shape)} bf16 causal, block_q={bq} "
                f"block_k={bk}", err=err, tol=f"tol {TOL} abs + {TOL} rel",
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, flops=flops,
@@ -331,7 +355,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     flops = 2.0 * B * H * nc * (tri * STATE + tri * HD + 2 * L * STATE * HD)
     nbytes = moved_bytes(xs, la, bc, bc, y, fin)
     kernels.append(dict(
-        name="ssd_scan", tpu="ssd_scan.py:93",
+        name="ssd_scan", tpu="ssd_scan.py:93", design="SIMT fp32 FMA",
         shapes=f"x {tuple(xs.shape)} bf16, b=c {tuple(bc.shape)}, "
                f"chunk={chunk}; final-state max abs err {fin_err:.4g}",
         err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
@@ -449,6 +473,7 @@ def decode_phase(dev, resources, net, out_dir, launches):
         k.element_size()
     return [dict(
         name="decode_attention", tpu="decode_attention.py:100",
+        design="SIMT fp32 FMA, split-KV",
         shapes=f"q {tuple(q.shape)} bf16, k, v {cshape} bf16, lengths all "
                f"{DS}, block_k={bk}; output RMS "
                f"{want.pow(2).mean().sqrt().item():.4g}, relative norm err "
@@ -496,9 +521,12 @@ def main() -> int:
     out_dir = _build.build_all()
     print(f"built kernels in {out_dir.relative_to(ROOT)}")
     for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        rep = _build.ptxas_report(src).values()
+        spills = [v["spill_stores"] for v in rep if v["spill_stores"]]
+        print(f"  ptxas {src}: {len(rep)} kernels, registers "
+              f"{min(v['registers'] for v in rep)}-"
+              f"{max(v['registers'] for v in rep)}; spill stores in "
+              f"{len(spills)} (up to {max(spills, default=0)} B)")
 
     resources = [Resource("edge1", "edge", EDGE_BOX_1, speed_factor=2.0),
                  Resource("cloud", "cloud", CLOUD_VM, speed_factor=1.0)]
@@ -516,8 +544,10 @@ def main() -> int:
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         ms, lib_ms, kname = r["ms"], r["lib_ms"], r["name"]
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
-        print(f"kernel {kname}: {r['shapes']}; max abs err {r['err']:.4g} "
-              f"({r['tol']}); {ms:.4f} ms of device time ({r['call_ms']:.4f} "
+        build = "".join(f"; {k} {v}" for k, v in r.get("build", {}).items())
+        print(f"kernel {kname} ({r['design']}{build}): {r['shapes']}; max "
+              f"abs err {r['err']:.4g} ({r['tol']}); {ms:.4f} ms of device "
+              f"time ({r['call_ms']:.4f} "
               f"ms per call, launch included) vs plain {r['plain_ms']:.4f} "
               f"ms, library {lib}; bound {bound_ms:.4f} ms by {bound_by} "
               f"({r['flops'] / 1e9:.2f} GFLOP, {r['nbytes'] / 1e6:.2f} MB); "
@@ -525,12 +555,13 @@ def main() -> int:
               f"{r['flops'] / ms / 1e9:.2f} TFLOP/s, "
               f"{r['nbytes'] / ms / 1e9:.3f} TB/s achieved")
         report.append({
-            "name": kname, "route": "cuda",
+            "name": kname, "route": "cuda", "design": r["design"],
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": f"src/repro/kernels/{r['tpu']}",
             "launches": launches[kname], "max_abs_err": r["err"], "ms": ms,
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            **r.get("build", {})})
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": report}))

@@ -16,8 +16,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -54,12 +56,12 @@ SIGNATURES = {
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _cuda_tool(tool: str) -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(home, "bin", tool), shutil.which(tool)):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+    raise RuntimeError(f"{tool} not found: the CUDA kernels are built on a "
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
@@ -79,7 +81,7 @@ def build_all() -> Path:
     todo = [n for n in SOURCES if not (out / f"lib{n}.so").exists()]
     if not todo:
         return out
-    nvcc = _nvcc()
+    nvcc = _cuda_tool("nvcc")
     procs = {}
     for name in todo:
         tmp = out / f"lib{name}.{os.getpid()}.tmp"
@@ -104,6 +106,56 @@ def build_log(name: str) -> str:
     """nvcc's output for ``csrc/<name>.cu`` (the ``-Xptxas -v`` report)."""
     path = build_dir() / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of ``csrc/<name>.cu``, from its build log:
+    ``registers`` per thread and bytes of ``spill_stores`` and
+    ``spill_loads``."""
+    return parse_ptxas(build_log(name))
+
+
+def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
+    """:func:`ptxas_report` of one ``-Xptxas -v`` log."""
+    report: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = report.setdefault(m.group(1), {})
+        elif entry is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            entry["registers"] = int(m.group(1))
+    return report
+
+
+def sass_opcodes(name: str) -> dict[str, Counter]:
+    """Per kernel (mangled name) of the built ``lib<name>.so``, the number
+    of its SASS instructions of each opcode (e.g. ``HMMA``), by the
+    opcode's name before the first ``.`` (``cuobjdump -sass``)."""
+    lib = build_all() / f"lib{name}.so"
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return parse_sass(sass)
+
+
+def parse_sass(sass: str) -> dict[str, Counter]:
+    """:func:`sass_opcodes` of one ``cuobjdump -sass`` listing."""
+    counts: dict[str, Counter] = {}
+    fn = None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1)
+            counts[fn] = Counter()
+        elif fn is not None and (m := re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                line)):
+            counts[fn][m.group(1)] += 1
+    return counts
 
 
 def library(name: str) -> ctypes.CDLL:

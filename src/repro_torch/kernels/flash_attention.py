@@ -1,13 +1,16 @@
 """Flash attention (prefill): the port of the TPU kernel to Hopper.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-tensors and takes the plain PyTorch version (:func:`.ref.flash_attention_ref`)
-for tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
-launches the kernel or raises; it never falls back.  ``launches`` counts the
+tensors, the tensor-core kernel for bf16 and the SIMT kernel for fp32, and
+takes the plain PyTorch version (:func:`.ref.flash_attention_ref`) for
+tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
+launches a kernel or raises; it never falls back.  ``launches`` counts the
 kernel launches.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -17,14 +20,52 @@ from .substrate import card_smem_limit
 
 launches = 0
 
+MMA_HEAD_DIMS = range(16, 257, 16)     # head_dims of the bf16 route
+MAX_BLOCK_Q = 256                      # query rows of a CTA (bf16 route)
+Q_ALIGN = 32                           # query rows of a warp, at most
+KEY_ALIGN = 64                         # the bf16 route's widest key step
 
-def smem_bytes(params: dict, shapes) -> int:
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tile_sizes(block_q: int, block_k: int, Sq: int, Sk: int,
+               dtype: torch.dtype) -> tuple[int, int]:
+    """The (block_q, block_k) a launch uses.  The fp32 route cuts each to
+    its sequence; the bf16 route rounds ``min(block_q, Sq)`` up to a
+    multiple of 32 (whole warps of 16 or 32 query rows) and ``min(block_k,
+    Sk)`` up to a multiple of 64 (whole key steps); rows past Sq or Sk are
+    zero-filled and masked."""
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if dtype == torch.bfloat16:
+        return _round_up(bq, Q_ALIGN), _round_up(bk, KEY_ALIGN)
+    return bq, bk
+
+
+def mma_instances(per_kernel: dict) -> dict[int, list]:
+    """A per-kernel report of ``libflash_attention.so`` (mangled name ->
+    value, as :func:`._build.ptxas_report` gives it), grouped by the
+    head_dim of its bf16 instances ``fa_mma_kernel<hd, ...>``; the fp32
+    kernel is left out."""
+    out: dict[int, list] = {}
+    for name, value in per_kernel.items():
+        if m := re.search(r"fa_mma_kernelILi(\d+)E", name):
+            out.setdefault(int(m.group(1)), []).append(value)
+    return out
+
+
+def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one CTA for ``params`` = {block_q, block_k}
-    at ``shapes`` = (q shape, k shape); mirrors ``fa_smem_floats`` in
+    at ``shapes`` = (q shape, k shape) in ``dtype``; mirrors
+    ``fa_mma_smem_bytes`` (bf16: the q tile and two stages of k and v
+    tiles, rows padded to hd + 8) and ``fa_smem_floats`` (fp32) in
     ``csrc/flash_attention.cu``."""
     q_shape, k_shape = shapes[0], shapes[1]
     Sq, hd, Sk = q_shape[1], q_shape[3], k_shape[1]
-    bq, bk = min(params["block_q"], Sq), min(params["block_k"], Sk)
+    bq, bk = tile_sizes(params["block_q"], params["block_k"], Sq, Sk, dtype)
+    if dtype == torch.bfloat16:
+        return 2 * (hd + 8) * (bq + 4 * bk)
     return 4 * (bq * hd + bk * (hd + 1) + bk * hd + bq * bk + bq * hd + 3 * bq)
 
 
@@ -65,14 +106,30 @@ def _launch(q, k, v, causal, window, softcap, block_q, block_k):
         raise ValueError("q, k, v must be on one device")
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    nbytes = smem_bytes({"block_q": bq, "block_k": bk}, (q.shape, k.shape))
+    bq, bk = tile_sizes(block_q, block_k, Sq, Sk, q.dtype)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        if hd not in MMA_HEAD_DIMS:
+            raise ValueError(f"flash_attention's bf16 kernel takes head_dim "
+                             f"a multiple of 16 up to 256, got {hd}")
+        if bq > MAX_BLOCK_Q:
+            raise ValueError(f"flash_attention's bf16 kernel takes block_q "
+                             f"<= {MAX_BLOCK_Q}, got {block_q}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(t.stride(i) * 2 % 16
+                                        for i in range(3)):
+                raise ValueError(f"flash_attention's bf16 kernel reads {name} "
+                                 f"rows as 16-byte pieces: its storage and "
+                                 f"strides {t.stride()} must be 16-byte "
+                                 f"aligned")
+    nbytes = smem_bytes({"block_q": block_q, "block_k": block_k},
+                        (q.shape, k.shape), q.dtype)
     limit = card_smem_limit(q.device)
     if nbytes > limit:
         raise ValueError(f"flash_attention block_q={block_q}, "
-                         f"block_k={block_k} at head_dim {hd} needs {nbytes} "
-                         f"B of shared memory; the card allows {limit} B")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+                         f"block_k={block_k} at head_dim {hd} in {q.dtype} "
+                         f"needs {nbytes} B of shared memory; the card "
+                         f"allows {limit} B")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.library("flash_attention")
     code = lib.fa_forward(

@@ -31,7 +31,7 @@ def smem_footprint(kernel: str, params: dict, args, options=None) -> int:
     is ``args[0]``, at block sizes ``params`` (the autotuner's prune)."""
     x = tuple(args[0].shape)
     if kernel == "flash_attention":            # q = k = v = x
-        return _fa_smem(params, (x, x))
+        return _fa_smem(params, (x, x), args[0].dtype)
     if kernel == "decode_attention":           # q = x, the cache in options
         o = options or {}
         k = (x[0], o["cache_len"], o["kv_heads"], x[2])

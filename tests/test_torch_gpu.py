@@ -9,13 +9,16 @@ import).  The file imports no JAX, so it runs on a GPU host that has none:
 Inputs come from numpy with a seed.  Tolerances: fp32 2e-5 for attention
 (prefill and decode) and 2e-4 for the SSD scan (its outputs sum hundreds of
 terms of magnitude ~10), bf16 3e-2, as in tests/test_kernels.py; the plain
-versions run in fp32 with TF32 off.
+versions run in fp32 with TF32 off.  bf16 flash attention runs on the
+tensor cores and rounds P to bf16 before the PV product (at most 2**-8
+relative per term), which 3e-2 covers.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -49,8 +52,7 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Sk,H,Hk,hd,causal,window,softcap,bq,bk", [
+FLASH_CASES = [  # B, Sq, Sk, H, Hk, hd, causal, window, softcap, bq, bk
     (1, 256, 256, 4, 4, 64, True, None, None, 128, 128),      # MHA
     (2, 256, 256, 8, 2, 64, True, None, None, 128, 128),      # GQA 4:1
     (1, 128, 128, 2, 2, 256, True, None, None, 32, 32),       # head_dim 256
@@ -60,10 +62,29 @@ def _close(got, want, tol):
     (1, 384, 200, 4, 2, 64, True, None, None, 128, 128),
     (1, 130, 257, 4, 2, 64, True, None, None, 64, 128),
     (1, 640, 640, 32, 32, 80, True, None, None, 128, 128),    # zamba2 heads
-])
+]
+# the bf16 route only: every autotuner candidate at zamba2's heads, Sq
+# that is no multiple of 16 (block_q rounds up to 160 and 224 rows),
+# GQA 4:1 at head_dim 128, window + softcap at 80
+BF16_FLASH_CASES = [
+    (1, 640, 640, 32, 32, 80, True, None, None, bq, bk)
+    for bq in (64, 128, 256) for bk in (64, 128, 256)] + [
+    (1, 130, 130, 4, 2, 80, True, None, None, 256, 256),
+    (1, 200, 200, 4, 4, 64, False, None, None, 256, 128),
+    (2, 384, 384, 16, 4, 128, True, None, None, 128, 64),
+    (1, 512, 512, 8, 2, 80, True, 100, 20.0, 128, 128),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,B,Sq,Sk,H,Hk,hd,causal,window,softcap,bq,bk",
+    [(dt, *c) for c in FLASH_CASES for dt in (torch.float32, torch.bfloat16)]
+    + [(torch.bfloat16, *c) for c in BF16_FLASH_CASES])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hk, hd,
                                               causal, window, softcap, bq,
                                               bk, dtype):
+    """bf16 at 3e-2: besides the inputs' rounding, the kernel rounds P to
+    bf16 before the PV product (at most 2**-8 relative per term)."""
     rng = np.random.default_rng(0)
     q = _randn(rng, (B, Sq, H, hd), dtype, cuda)
     k = _randn(rng, (B, Sk, Hk, hd), dtype, cuda)
@@ -79,24 +100,67 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hk, hd,
     _close(got, want, TOL[dtype])
 
 
-def test_flash_attention_fully_masked_rows_are_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows_are_zero(cuda, dtype):
     """Rows whose window lies wholly past Sk have no unmasked key."""
     rng = np.random.default_rng(1)
-    q = _randn(rng, (1, 384, 2, 64), torch.float32, cuda)
-    k = _randn(rng, (1, 200, 2, 64), torch.float32, cuda)
+    q = _randn(rng, (1, 384, 2, 64), dtype, cuda)
+    k = _randn(rng, (1, 200, 2, 64), dtype, cuda)
     got = fa_mod.flash_attention(q, k, k, causal=True, window=64)
-    want = flash_attention_ref(q, k, k, causal=True, window=64)
+    want = flash_attention_ref(q.float(), k.float(), k.float(), causal=True,
+                               window=64)
     assert torch.isfinite(got).all()
     assert (got[:, 263:] == 0).all()
-    _close(got, want, TOL[torch.float32])
+    _close(got, want, TOL[dtype])
 
 
-def test_flash_attention_refuses_oversized_tiles(cuda):
-    x = torch.zeros((1, 512, 2, 80), device=cuda, dtype=torch.bfloat16)
+@pytest.mark.parametrize("hd,dtype", [(256, torch.bfloat16),
+                                      (80, torch.float32)])
+def test_flash_attention_refuses_oversized_tiles(cuda, hd, dtype):
+    x = torch.zeros((1, 512, 2, hd), device=cuda, dtype=dtype)
     before = fa_mod.launches
     with pytest.raises(ValueError, match="shared memory"):
         fa_mod.flash_attention(x, x, x, block_q=256, block_k=256)
     assert fa_mod.launches == before
+
+
+def test_flash_attention_bf16_refuses_other_head_dims(cuda):
+    """The tensor-core route takes head_dim % 16 == 0 up to 256; it never
+    hands another shape to the plain version or the fp32 kernel."""
+    before = fa_mod.launches
+    for hd in (72, 272):
+        x = torch.zeros((1, 64, 2, hd), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa_mod.flash_attention(x, x, x)
+    x = torch.zeros((1, 640, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block_q"):
+        fa_mod.flash_attention(x, x, x, block_q=512)
+    assert fa_mod.launches == before
+    y = torch.zeros((1, 64, 2, 72), device=cuda)      # fp32 takes any width
+    assert (fa_mod.flash_attention(y, y, y) == 0).all()
+
+
+def test_flash_attention_bf16_kernel_uses_tensor_cores(cuda):
+    """Every bf16 instance holds HMMA instructions; the fp32 SIMT kernel
+    holds none."""
+    counts = {f: c["HMMA"] for f, c in
+              _build.sass_opcodes("flash_attention").items()}
+    mma = fa_mod.mma_instances(counts)
+    simt = [n for f, n in counts.items() if "fa_kernel" in f]
+    assert sorted(mma) == list(fa_mod.MMA_HEAD_DIMS), counts
+    assert all(n > 0 for ns in mma.values() for n in ns), counts
+    assert simt and not any(simt), counts
+
+
+def test_flash_attention_bf16_kernels_do_not_spill(cuda):
+    """ptxas reports no spill stores for any bf16 instance at head_dim <=
+    128, whichever block_q launches it."""
+    _build.build_all()
+    report = fa_mod.mma_instances(_build.ptxas_report("flash_attention"))
+    small = {hd: entries for hd, entries in report.items() if hd <= 128}
+    assert sorted(small) == list(range(16, 129, 16)), report
+    for hd, entries in small.items():
+        assert all(e["spill_stores"] == 0 for e in entries), (hd, entries)
 
 
 def test_flash_attention_raises_on_unsupported_dtype(cuda):

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro_torch.core.graph import TensorSpec
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ops import (flash_attention, flash_attention_node,
@@ -163,17 +164,82 @@ def test_wrappers_trace_on_meta():
     assert y.shape == x.shape and fin.shape == (1, 32, 64, 80)
 
 
-@pytest.mark.parametrize("kernel,params,want", [
+@pytest.mark.parametrize("kernel,params,dtype,hd,want", [
     # zamba2-2.7b widths: (1, 4096, 32, 80) activation, SSM state 64
-    ("flash_attention", {"block_q": 64, "block_k": 64}, 99328),
-    ("flash_attention", {"block_q": 128, "block_k": 128}, 231424),
-    ("flash_attention", {"block_q": 256, "block_k": 64}, 273664),
-    ("ssd_scan", {"chunk": 128}, 195072),
-    ("ssd_scan", {"chunk": 256}, 500736),
+    ("flash_attention", {"block_q": 64, "block_k": 64}, "float32", 80, 99328),
+    ("flash_attention", {"block_q": 128, "block_k": 128}, "float32", 80,
+     231424),
+    ("flash_attention", {"block_q": 256, "block_k": 64}, "float32", 80,
+     273664),
+    ("ssd_scan", {"chunk": 128}, "float32", 80, 195072),
+    ("ssd_scan", {"chunk": 256}, "float32", 80, 500736),
+    # bf16 route: q tile + two stages of k and v, rows padded to hd + 8
+    ("flash_attention", {"block_q": 64, "block_k": 64}, "bfloat16", 80,
+     56320),
+    ("flash_attention", {"block_q": 128, "block_k": 128}, "bfloat16", 80,
+     112640),
+    ("flash_attention", {"block_q": 256, "block_k": 256}, "bfloat16", 80,
+     225280),
+    ("flash_attention", {"block_q": 256, "block_k": 256}, "bfloat16", 256,
+     675840),
 ])
-def test_smem_footprint(kernel, params, want):
-    x = torch.empty(1, 4096, 32, 80, device="meta")
+def test_smem_footprint(kernel, params, dtype, hd, want):
+    x = torch.empty(1, 4096, 32, hd, dtype=getattr(torch, dtype),
+                    device="meta")
     assert smem_footprint(kernel, params, (x,), {"state_dim": 64}) == want
+
+
+def test_flash_tile_sizes_round_up_for_bf16():
+    """The bf16 route rounds block_q up to whole warps of up to 32 rows and
+    block_k up to whole 64-key steps; fp32 cuts each to its sequence."""
+    assert fa_mod.tile_sizes(128, 128, 130, 200, torch.bfloat16) == (128, 128)
+    assert fa_mod.tile_sizes(256, 256, 130, 200, torch.bfloat16) == (160, 256)
+    assert fa_mod.tile_sizes(64, 64, 8, 8, torch.bfloat16) == (32, 64)
+    assert fa_mod.tile_sizes(256, 256, 130, 200, torch.float32) == (130, 200)
+    assert fa_mod.smem_bytes({"block_q": 256, "block_k": 256},
+                             ((1, 130, 4, 64), (1, 200, 4, 64)),
+                             torch.bfloat16) == 2 * 72 * (160 + 4 * 256)
+
+
+# excerpts of nvcc's -Xptxas -v report and of cuobjdump -sass for two
+# instances of csrc/flash_attention.cu
+MMA80 = ("_ZN11repro_torch12_GLOBAL__N_113fa_mma_kernelILi80ELi2ELi8EEEvPK13"
+         "__nv_bfloat16S4_S4_PS2_iiiiNS0_7StridesES5_S5_S5_iiiifff")
+SIMT = "_ZN11repro_torch12_GLOBAL__N_19fa_kernelIfEEvPKT_S4_S4_PS2_iiiii"
+PTXAS_LOG = f"""\
+ptxas info    : Compiling entry function '{MMA80}' for 'sm_90a'
+ptxas info    : Function properties for {MMA80}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 252 registers, used 0 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '{SIMT}' for 'sm_90a'
+ptxas info    : Function properties for {SIMT}
+    32 bytes stack frame, 28 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 420 bytes cmem[0]
+"""
+SASS = f"""\
+\t\tFunction : {MMA80}
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R2, R8 ;
+        /*0020*/              @!P0 HMMA.16816.F32.BF16 R12, R4, R2, R12 ;
+        /*0030*/               @P1 BRA `(.L_x_1) ;
+\t\tFunction : {SIMT}
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_build_reports_parse_per_kernel():
+    """ptxas registers and spills, and SASS opcode counts, per kernel; the
+    bf16 instances grouped by their head_dim."""
+    report = _build.parse_ptxas(PTXAS_LOG)
+    assert report == {
+        MMA80: {"spill_stores": 0, "spill_loads": 0, "registers": 252},
+        SIMT: {"spill_stores": 28, "spill_loads": 28, "registers": 128}}
+    ops = _build.parse_sass(SASS)
+    assert ops[MMA80] == {"LDC": 1, "HMMA": 2, "BRA": 1}
+    assert ops[SIMT] == {"FFMA": 1, "EXIT": 1}
+    assert fa_mod.mma_instances(report) == {80: [report[MMA80]]}
+    assert fa_mod.mma_instances({SIMT: 1}) == {}
 
 
 def test_autotuner_prunes_over_the_shared_memory_limit():
@@ -187,7 +253,7 @@ def test_autotuner_prunes_over_the_shared_memory_limit():
 
     tuner = KernelAutotuner(measure=measure, smem_limit=H100_SMEM,
                             device="cpu")
-    x = torch.zeros(1, 512, 4, 80, dtype=torch.bfloat16)
+    x = torch.zeros(1, 512, 4, 80)
     rec = tuner.tune("flash_attention", lambda p: p, (x,), options={})
     kept = [p for p in DEFAULT_CANDIDATES["flash_attention"]
             if 256 not in p.values()]
@@ -205,6 +271,29 @@ def test_autotuner_prunes_over_the_shared_memory_limit():
         KernelAutotuner(measure=measure, smem_limit=1024,
                         device="cpu").tune_node(
             flash_attention_node("a", device="cpu"), in_specs=[spec])
+
+
+def test_autotuner_prunes_bf16_flash_by_its_own_footprint():
+    """In bf16 every candidate fits at head_dim 80, so the tuner picks
+    among all nine; at head_dim 256, 256/256 (675,840 B) is pruned."""
+    measured = []
+
+    def measure(fn, args):
+        measured.append(fn)
+        return float(len(measured))
+
+    tuner = KernelAutotuner(measure=measure, smem_limit=H100_SMEM,
+                            device="cpu")
+    cands = DEFAULT_CANDIDATES["flash_attention"]
+    x = torch.zeros(1, 512, 4, 80, dtype=torch.bfloat16)
+    rec = tuner.tune("flash_attention", lambda p: p, (x,), options={})
+    assert not rec.pruned and len(rec.trials) == len(measured) == len(cands)
+
+    x = torch.zeros(1, 512, 2, 256, dtype=torch.bfloat16)
+    rec = tuner.tune("flash_attention", lambda p: p, (x,), options={})
+    assert rec.pruned['{"block_k": 256, "block_q": 256}'] == 675840
+    assert all(v > H100_SMEM for v in rec.pruned.values())
+    assert len(rec.trials) + len(rec.pruned) == len(cands)
 
 
 def test_pad_helpers():
