@@ -30,10 +30,13 @@ whose outputs are far smaller than that, at limits scaled to the output
 path's shapes and timed with CUDA events, as device time (the host's
 launch overhead excluded) and per call (included), beside its plain
 version, its bound from the card's peak figures and, for attention,
-``scaled_dot_product_attention`` as a yardstick.  The flash row also gives
-the registers and spills of the bf16 tensor-core instances at the path's
-head_dim from the ``-Xptxas -v`` log, their HMMA instructions in the SASS
-(there must be some) and their SASS opcode mix.
+``scaled_dot_product_attention`` as a yardstick, with its host work per
+call.  Each row also gives the registers and spills of the bf16
+tensor-core instances the path runs from the ``-Xptxas -v`` log and their
+HMMA instructions in the SASS (there must be some); the flash and decode
+rows their SASS opcode mix, the decode row ``nsplit`` and CTAs per SM, the
+SSD row the bytes of its workspace and its device time with b and c in
+buffers of their own (which must give the same output).
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` from the repo root; ``--out``
 also writes the BenchmarkDBs and autotuner records there.  The last line of
@@ -50,6 +53,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -110,6 +114,58 @@ def time_ms(fn, runs: int = 20, hold: bool = True) -> float:
         else:
             cycles *= 2
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time per call of ``fn()`` (ms): the mean wall-clock of enqueuing
+    ``calls`` calls while the device is held busy, so the host never waits
+    for it; the wrapper's own work, the launch included."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(64 * SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device time per call (ms) of each CUDA kernel ``fn()`` launches, by
+    kernel name, from ``torch.profiler`` over ``calls`` calls; empty where
+    the profiler sees no device time."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        name = re.search(r"(\w+)[<(]", ev.key)   # the kernel's own name
+        if t and name:
+            out[name.group(1)] = out.get(name.group(1), 0.0) + t / calls / 1e3
+    return out
+
+
+def mma_build(what: str, ptxas: list, sass: list) -> dict:
+    """Registers, spill stores and the fewest HMMA of the bf16 tensor-core
+    instances a path runs (their ``-Xptxas -v`` entries and SASS opcode
+    counts); raises if an instance has no HMMA."""
+    hmma = min(ops["HMMA"] for ops in sass)
+    if not hmma:
+        raise RuntimeError(f"{what}: a bf16 instance on the main path has no "
+                           "HMMA instruction in its SASS")
+    return dict(registers=max(e["registers"] for e in ptxas),
+                spill_stores=max(e["spill_stores"] for e in ptxas),
+                hmma=hmma)
 
 
 def check_close(what: str, got, want, atol: float = TOL,
@@ -300,6 +356,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
         return fa_mod.flash_attention(q, q, q, causal=True, block_q=bq,
                                       block_k=bk)
     ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(qf, qf, qf,
                                                        causal=True), runs=10)
     qt = q.transpose(1, 2).contiguous()
@@ -331,8 +388,8 @@ def prefill_phase(dev, resources, net, out_dir, launches):
                        if any(e["spill_stores"] for e in es))),
         shapes=f"q=k=v {tuple(q.shape)} bf16 causal, block_q={bq} "
                f"block_k={bk}", err=err, tol=f"tol {TOL} abs + {TOL} rel",
-        ms=ms, call_ms=call_ms, plain_ms=plain_ms, flops=flops,
-        nbytes=nbytes, lib_ms=lib_ms))
+        ms=ms, call_ms=call_ms, host_ms=host, plain_ms=plain_ms,
+        flops=flops, nbytes=nbytes, lib_ms=lib_ms))
 
     gen = torch.Generator().manual_seed(SEED + 1)
     xs = torch.tanh(torch.randn(B, S, H, HD, generator=gen)).to(
@@ -347,6 +404,19 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     def call():
         return ssd_mod.ssd_scan(xs, la, bc, bc, chunk=chunk)
     ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    split = kernel_split(call)
+    # the general route, which copies b and c into shared memory rows of
+    # their own: b and c as the same views of two other copies of x, so
+    # the launch cannot read them from x's rows
+    b2, c2 = (xs.clone()[..., :STATE] for _ in range(2))
+    if not all(torch.equal(u, w) for u, w in zip(
+            ssd_mod.ssd_scan(xs, la, b2, c2, chunk=chunk), (y, fin))):
+        raise RuntimeError("ssd_scan: b and c in buffers of their own give "
+                           "another result than the node's views of x")
+    separate_ms = time_ms(lambda: ssd_mod.ssd_scan(xs, la, b2, c2,
+                                                   chunk=chunk))
+    del b2, c2
     xsf, laf, bcf = xs.float(), la.float(), bc.float()
     plain_ms = time_ms(lambda: ref.ssd_ref(xsf, laf, bcf, bcf, chunk=chunk),
                        runs=10)
@@ -354,12 +424,35 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     tri = L * (L + 1) // 2                   # causal (i, j) pairs per chunk
     flops = 2.0 * B * H * nc * (tri * STATE + tri * HD + 2 * L * STATE * HD)
     nbytes = moved_bytes(xs, la, bc, bc, y, fin)
+    # the fp32 chunk states and decays the three passes hand on: traffic
+    # beyond the bound's inputs and outputs
+    ws_bytes = ssd_mod.workspace_bytes({"chunk": chunk}, (xs.shape, bc.shape),
+                                       xs.dtype)
+    # the instances this launch runs: P = HD, log_a in bf16
+    passes = {name: ssd_mod.mma_passes(report("ssd_scan"), HD, la.dtype)
+              for name, report in (("ptxas", _build.ptxas_report),
+                                   ("sass", _build.sass_opcodes))}
+    build = mma_build("ssd_scan", sum(passes["ptxas"].values(), []),
+                      sum(passes["sass"].values(), []))
+    print("ssd_scan device time per pass (torch.profiler): " + (", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"))
+    print("ssd_scan bf16 passes: " + "; ".join(
+        f"{name}: registers {max(e['registers'] for e in es)}, spill stores "
+        f"{max(e['spill_stores'] for e in es)}, HMMA "
+        f"{min(o['HMMA'] for o in passes['sass'][name])}"
+        for name, es in sorted(passes["ptxas"].items())))
     kernels.append(dict(
-        name="ssd_scan", tpu="ssd_scan.py:93", design="SIMT fp32 FMA",
+        name="ssd_scan", tpu="ssd_scan.py:93",
+        design="mma.sync bf16, chunk-parallel 3-pass",
+        build=dict(**build, workspace_bytes=ws_bytes,
+                   separate_ms=separate_ms),
         shapes=f"x {tuple(xs.shape)} bf16, b=c {tuple(bc.shape)}, "
-               f"chunk={chunk}; final-state max abs err {fin_err:.4g}",
+               f"chunk={chunk}; final-state max abs err {fin_err:.4g}; "
+               f"workspace {ws_bytes} B; b and c in buffers of their own: "
+               f"the same output, {separate_ms:.4f} ms of device time",
         err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
-        plain_ms=plain_ms, flops=flops, nbytes=nbytes, lib_ms=None))
+        host_ms=host, plain_ms=plain_ms, flops=flops, nbytes=nbytes,
+        lib_ms=None))
     return kernels
 
 
@@ -370,6 +463,7 @@ def decode_phase(dev, resources, net, out_dir, launches):
 
     from repro_torch.core import TensorSpec
     from repro_torch.kernel_graph import decode_graph
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da_mod
     from repro_torch.kernels import ref
 
@@ -449,6 +543,9 @@ def decode_phase(dev, resources, net, out_dir, launches):
     def call():
         return da_mod.decode_attention(q, k, v, full, block_k=bk)
     ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    split = kernel_split(call)
+    plan = da_mod.split_plan(q, k, bk)
     plain_ms = time_ms(lambda: ref.decode_attention_ref(qf, kf, vf, full),
                        runs=10)
     del kf, vf
@@ -471,9 +568,22 @@ def decode_phase(dev, resources, net, out_dir, launches):
     flops = 4.0 * DH * DHD * rows
     nbytes = moved_bytes(q, got, full) + 2.0 * rows * DHK * DHD * \
         k.element_size()
+    ptxas = da_mod.mma_instances(_build.ptxas_report("decode_attention"))
+    sass = da_mod.mma_instances(_build.sass_opcodes("decode_attention"))
+    build = mma_build("decode_attention", [ptxas[DHD]], [sass[DHD]])
+    mix = sass[DHD]
+    print(f"decode_attention bf16 instance at head_dim {DHD}: SASS "
+          f"{sum(mix.values())} instructions, "
+          + ", ".join(f"{op} {n}" for op, n in mix.most_common(12)))
+    print("decode_attention device time per kernel (torch.profiler): " + (
+        ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        or "not measured"))
     return [dict(
         name="decode_attention", tpu="decode_attention.py:100",
-        design="SIMT fp32 FMA, split-KV",
+        design="mma.sync bf16, split-KV, one wave",
+        build=dict(**build, nsplit=plan["nsplit"],
+                   ctas_per_sm=plan["ctas_per_sm"],
+                   smem_bytes=plan["smem_bytes"]),
         shapes=f"q {tuple(q.shape)} bf16, k, v {cshape} bf16, lengths all "
                f"{DS}, block_k={bk}; output RMS "
                f"{want.pow(2).mean().sqrt().item():.4g}, relative norm err "
@@ -482,8 +592,8 @@ def decode_phase(dev, resources, net, out_dir, launches):
                f"{lib_note}",
         err=max(err, mixed_err),
         tol=f"tol {DEC_ATOL} x RMS abs + {DEC_RTOL} rel, norm {DEC_NORM}",
-        ms=ms, call_ms=call_ms, plain_ms=plain_ms, flops=flops,
-        nbytes=nbytes, lib_ms=lib_ms)]
+        ms=ms, call_ms=call_ms, host_ms=host, plain_ms=plain_ms,
+        flops=flops, nbytes=nbytes, lib_ms=lib_ms)]
 
 
 def main() -> int:
@@ -518,8 +628,10 @@ def main() -> int:
           f"{peak_bw / 1e12:.2f} TB/s")
 
     # -- build ----------------------------------------------------------
+    t0 = time.perf_counter()
     out_dir = _build.build_all()
-    print(f"built kernels in {out_dir.relative_to(ROOT)}")
+    print(f"built kernels in {out_dir.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for src in _build.SOURCES:
         rep = _build.ptxas_report(src).values()
         spills = [v["spill_stores"] for v in rep if v["spill_stores"]]
@@ -547,8 +659,8 @@ def main() -> int:
         build = "".join(f"; {k} {v}" for k, v in r.get("build", {}).items())
         print(f"kernel {kname} ({r['design']}{build}): {r['shapes']}; max "
               f"abs err {r['err']:.4g} ({r['tol']}); {ms:.4f} ms of device "
-              f"time ({r['call_ms']:.4f} "
-              f"ms per call, launch included) vs plain {r['plain_ms']:.4f} "
+              f"time ({r['call_ms']:.4f} ms per call, launch included; host work {r['host_ms']:.4f} "
+              f"ms per call) vs plain {r['plain_ms']:.4f} "
               f"ms, library {lib}; bound {bound_ms:.4f} ms by {bound_by} "
               f"({r['flops'] / 1e9:.2f} GFLOP, {r['nbytes'] / 1e6:.2f} MB); "
               f"{launches[kname]} launches on the main path; "
@@ -559,7 +671,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": f"src/repro/kernels/{r['tpu']}",
             "launches": launches[kname], "max_abs_err": r["err"], "ms": ms,
-            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "call_ms": r["call_ms"],
+            "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             **r.get("build", {})})
     torch.cuda.synchronize()

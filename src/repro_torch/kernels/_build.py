@@ -48,9 +48,14 @@ SIGNATURES = {
                           _I, _I, _I, ctypes.c_float, ctypes.c_longlong, _P],
                          "da_error_string"),
     "ssd_scan": ("ssd_forward",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                  ctypes.c_longlong, _P],
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                  _I, ctypes.c_longlong, _P],
                  "ssd_error_string"),
+}
+# further C functions of a source: name -> argtypes (all return int)
+EXTRA_FUNCTIONS = {
+    "decode_attention": {"da_occupancy": [_I, _I, _I, _I, _I,
+                                          ctypes.c_longlong, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -169,6 +174,9 @@ def library(name: str) -> ctypes.CDLL:
         err = getattr(lib, err_name)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        for extra, types in EXTRA_FUNCTIONS.get(name, {}).items():
+            getattr(lib, extra).argtypes = types
+            getattr(lib, extra).restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
 
@@ -182,9 +190,16 @@ def check(name: str, code: int) -> None:
                            f"({err(code).decode()})")
 
 
+_strides: dict[tuple, ctypes.Array] = {}
+
+
 def strides(*tensors: torch.Tensor) -> ctypes.Array:
     """The first three element strides of each tensor, flattened: (batch,
     sequence, head) of a (B, S, H, ...) tensor, (batch, head, 1) of a
-    (B, H, hd) one."""
-    vals = [t.stride(i) for t in tensors for i in range(3)]
-    return (ctypes.c_longlong * len(vals))(*vals)
+    (B, H, hd) one.  The C entry points only read the array, so one is
+    kept per distinct set of strides."""
+    vals = tuple(t.stride(i) for t in tensors for i in range(3))
+    arr = _strides.get(vals)
+    if arr is None:
+        arr = _strides[vals] = (ctypes.c_longlong * len(vals))(*vals)
+    return arr

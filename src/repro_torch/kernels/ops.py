@@ -38,7 +38,7 @@ def smem_footprint(kernel: str, params: dict, args, options=None) -> int:
         return _da_smem(params, (x, k), args[0].dtype)
     if kernel == "ssd_scan":                   # b = c = x[..., :state_dim]
         n = (options or {}).get("state_dim", 16)
-        return _ssd_smem(params, (x, (*x[:-1], n)))
+        return _ssd_smem(params, (x, (*x[:-1], n)), args[0].dtype)
     raise KeyError(f"no shared-memory model for kernel {kernel!r}")
 
 

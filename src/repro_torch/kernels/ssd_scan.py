@@ -1,12 +1,16 @@
 """Mamba-2 SSD chunked scan: the port of the TPU kernel to Hopper.
 
-:func:`ssd_scan` launches ``csrc/ssd_scan.cu`` for CUDA tensors and takes
-the plain PyTorch version (:func:`.ref.ssd_ref`) for tensors on the CPU or
-on ``meta`` (shape tracing).  On a CUDA tensor it launches the kernel or
-raises; it never falls back.  ``launches`` counts the kernel launches.
+:func:`ssd_scan` launches ``csrc/ssd_scan.cu`` for CUDA tensors, the
+chunk-parallel tensor-core passes for bf16 x and the SIMT kernel for fp32,
+and takes the plain PyTorch version (:func:`.ref.ssd_ref`) for tensors on
+the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it launches a
+kernel or raises; it never falls back.  ``launches`` counts calls that
+launched the kernel: the bf16 route's three passes count once.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -16,15 +20,74 @@ from .substrate import card_smem_limit
 
 launches = 0
 
+MAX_CHUNK = 256         # bf16 route: csrc/ssd_scan.cu kMaxChunk
+MAX_P, MAX_N = 128, 64  # bf16 route: 8 * kMaxPT, 16 * kMaxNK
 
-def smem_bytes(params: dict, shapes) -> int:
+
+def mma_tiles(P: int) -> int:
+    """The n8 tiles of P the bf16 instance a launch at width ``P`` runs
+    holds (``launch_chunked_p`` in ``csrc/ssd_scan.cu``)."""
+    Pp = _round16(P)
+    return 4 if Pp <= 32 else 8 if Pp <= 64 else 10 if Pp <= 80 else 16
+
+
+def mma_passes(per_kernel: dict, P: int | None = None,
+               la_dtype: torch.dtype | None = None) -> dict[str, list]:
+    """A per-kernel report of ``libssd_scan.so`` (mangled name -> value, as
+    :func:`._build.ptxas_report` gives it) reduced to the bf16 route's
+    tensor-core passes, ``ssd_chunk_state`` and ``ssd_chunk_scan``, each
+    with its instances (per ``log_a`` dtype and P's n8 tiles), or only the
+    instance a launch at width ``P`` with ``log_a`` in ``la_dtype`` runs."""
+    la = {None: r"\w+?", torch.float32: "f",
+          torch.bfloat16: "13__nv_bfloat16"}[la_dtype]
+    pt = r"\d+" if P is None else str(mma_tiles(P))
+    out: dict[str, list] = {}
+    for name, value in per_kernel.items():
+        if m := re.search(rf"(ssd_chunk_state|ssd_chunk_scan)I{la}Li{pt}E",
+                          name):
+            out.setdefault(m.group(1), []).append(value)
+    return out
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def chunk_length(chunk: int, S: int, dtype: torch.dtype) -> int:
+    """The chunk length a launch uses: ``min(chunk, S)``, rounded up to a
+    multiple of 16 (whole m16 tiles) in bf16; steps past S are padding."""
+    L = min(chunk, S)
+    return _round16(L) if dtype == torch.bfloat16 else L
+
+
+def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one CTA for ``params`` = {chunk} at
-    ``shapes`` = (x shape, b shape); mirrors ``ssd_smem_floats`` in
-    ``csrc/ssd_scan.cu``."""
+    ``shapes`` = (x shape, b shape) with x in ``dtype``; mirrors
+    ``csrc/ssd_scan.cu``: in bf16 ``chunked_smem``, the larger of the
+    chunk-state and chunk-scan passes (bf16 rows padded to a multiple of
+    16 plus 8), in fp32 ``ssd_smem_floats``."""
     x_shape, b_shape = shapes[0], shapes[1]
     S, P, N = x_shape[1], x_shape[3], b_shape[3]
-    L = min(params["chunk"], S)
+    L = chunk_length(params["chunk"], S, dtype)
+    if dtype == torch.bfloat16:
+        sx, sn = _round16(P) + 8, _round16(N) + 8
+        state = 2 * L * sn + 2 * L * sx + 4 * L
+        scan = 4 * L * sn + 2 * L * sx + 4 * _round16(N) * sx + 8 * L
+        return max(state, scan)
     return 4 * (L * P + 2 * L * (N + 1) + L * L + N * P + 3 * L)
+
+
+def workspace_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+    """Device memory of the fp32 workspace a call allocates: in bf16 the
+    (B, H, nc, N, P) chunk states and (B, H, nc) decays the passes hand on;
+    the fp32 route needs none."""
+    if dtype != torch.bfloat16:
+        return 0
+    x_shape, b_shape = shapes[0], shapes[1]
+    B, S, H, P = x_shape
+    N = b_shape[3]
+    nc = -(-S // chunk_length(params["chunk"], S, dtype))
+    return 4 * B * H * nc * (N * P + 1)
 
 
 def ssd_scan(x, log_a, b, c, *, chunk=128):
@@ -59,8 +122,14 @@ def _launch(x, log_a, b, c, chunk):
         raise ValueError("x, log_a, b, c must be on one device")
     B, S, H, P = x.shape
     N = b.shape[-1]
-    L = min(chunk, S)
-    nbytes = smem_bytes({"chunk": L}, (x.shape, b.shape))
+    L = chunk_length(chunk, S, x.dtype)
+    if x.dtype == torch.bfloat16 and (L > MAX_CHUNK or P > MAX_P or
+                                      N > MAX_N):
+        raise ValueError(f"ssd_scan's bf16 kernel takes chunk <= "
+                         f"{MAX_CHUNK}, P <= {MAX_P} and N <= {MAX_N}, got "
+                         f"chunk={chunk}, P={P}, N={N}")
+    params, shapes = {"chunk": L}, (x.shape, b.shape)
+    nbytes = smem_bytes(params, shapes, x.dtype)
     limit = card_smem_limit(x.device)
     if nbytes > limit:
         raise ValueError(f"ssd_scan chunk={chunk} at P={P}, N={N} needs "
@@ -69,12 +138,13 @@ def _launch(x, log_a, b, c, chunk):
     x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fin = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    lib = _build.library("ssd_scan")
-    code = lib.ssd_forward(
+    ws = torch.empty(workspace_bytes(params, shapes, x.dtype) // 4,
+                     dtype=torch.float32, device=x.device)
+    code = _build.library("ssd_scan").ssd_forward(
         x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), fin.data_ptr(), _build.DTYPE_CODES[x.dtype],
-        _build.DTYPE_CODES[log_a.dtype], B, S, H, P, N,
-        _build.strides(x, log_a, b, c, y), L, nbytes,
+        y.data_ptr(), fin.data_ptr(), ws.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[log_a.dtype], B, S,
+        H, P, N, _build.strides(x, log_a, b, c, y), L, nbytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
     launches += 1

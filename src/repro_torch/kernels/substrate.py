@@ -21,6 +21,7 @@ every later measurement, so it propagates.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import time
@@ -115,10 +116,19 @@ def _shape_key(args) -> str:
 
 def card_smem_limit(device: torch.device) -> int | None:
     """Shared memory one block may opt in to on ``device`` (None off the
-    card, where the plain versions run and nothing limits a tile)."""
+    card, where the plain versions run and nothing limits a tile); read
+    once per card."""
     if device.type != "cuda":
         return None
-    return int(torch.cuda.get_device_properties(device)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _smem_optin(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return int(torch.cuda.get_device_properties(index)
                .shared_memory_per_block_optin)
 
 

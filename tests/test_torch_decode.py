@@ -148,17 +148,58 @@ def test_decode_on_cpu_and_meta_launches_nothing():
     assert da_mod.launches == 0
 
 
-@pytest.mark.parametrize("ctas,n_tiles,sms,want", [
-    (128, 16, 132, (4, 4)),        # granite-8b, block_k 256: 512 CTAs
-    (128, 32, 132, (5, 7)),        # block_k 128
-    (8, 1, 132, (1, 1)),           # one tile: no split
-    (1024, 16, 132, (1, 16)),      # the grid is large enough unsplit
-    (2, 1000, 114, (200, 5)),
+@pytest.mark.parametrize("ctas,n_tiles,sms,per_sm,want", [
+    (128, 64, 132, 2, (2, 32)),    # granite-8b bf16, block_k 128: 2 per SM
+    (128, 64, 132, 1, (1, 64)),    # block_k 256: 1 per SM, no split
+    (128, 32, 132, 1, (1, 32)),    # fp32, block_k 128
+    (8, 1, 132, 2, (1, 1)),        # one tile: no split
+    (4, 3, 132, 8, (3, 1)),        # never more splits than tiles
+    (1024, 16, 132, 2, (1, 16)),   # the grid is large enough unsplit
+    (2, 1000, 114, 1, (56, 18)),
 ])
-def test_decode_num_splits(ctas, n_tiles, sms, want):
-    nsplit, per = da_mod.num_splits(ctas, n_tiles, sms)
+def test_decode_num_splits(ctas, n_tiles, sms, per_sm, want):
+    """As many splits as one wave of resident CTAs holds, never more than
+    tiles, the tiles shared out evenly."""
+    nsplit, per = da_mod.num_splits(ctas, n_tiles, sms, per_sm)
     assert (nsplit, per) == want
     assert nsplit * per >= n_tiles > (nsplit - 1) * per
+    assert nsplit == 1 or nsplit * ctas <= per_sm * sms
+
+
+@pytest.mark.parametrize("block_k,stages", [(32, 3), (128, 3), (256, 5),
+                                            (512, 9)])
+def test_decode_ring_stages(block_k, stages):
+    """The bf16 ring keeps block_k rows in flight beside the 64-row stage
+    being multiplied, with at least 3 stages."""
+    assert da_mod.ring_stages(block_k) == stages
+
+
+def test_decode_split_plan_fills_one_wave(monkeypatch):
+    """The launch plan at granite-8b widths from the occupancy the card
+    reports (stubbed: 2 CTAs per SM at 108,800 B, 1 at 178,432 B, 132
+    SMs); the bf16 route needs no workspace when the cache is not split."""
+    per_sm = {108800: 2, 178432: 1, 139520: 1}
+    monkeypatch.setattr(da_mod, "card_smem_limit", lambda d: H100_SMEM)
+    monkeypatch.setattr(da_mod, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(da_mod, "_ctas_per_sm",
+                        lambda *a: per_sm[a[-1]])
+    da_mod._plan.cache_clear()
+    dev = torch.device("cuda", 0)
+    try:
+        plan = da_mod._plan(dev, torch.bfloat16, 16, 4096, 32, 8, 128, 128)
+        assert plan == dict(block_k=128, smem_bytes=108800, ctas_per_sm=2,
+                            nsplit=2, tiles_per_split=32,
+                            workspace_floats=16 * 8 * 2 * 16 * 130)
+        plan = da_mod._plan(dev, torch.bfloat16, 16, 4096, 32, 8, 128, 256)
+        assert (plan["nsplit"], plan["workspace_floats"]) == (1, 0)
+        # fp32: block_k-row tiles, groups of 4 padded to 4
+        plan = da_mod._plan(dev, torch.float32, 16, 4096, 32, 8, 128, 128)
+        assert (plan["nsplit"], plan["tiles_per_split"]) == (1, 32)
+        assert plan["workspace_floats"] == 16 * 8 * 1 * 4 * 130
+        with pytest.raises(ValueError, match="shared memory"):
+            da_mod._plan(dev, torch.bfloat16, 16, 4096, 32, 8, 128, 512)
+    finally:
+        da_mod._plan.cache_clear()
 
 
 def test_decode_node_draws_once_and_converts_once():
@@ -191,9 +232,10 @@ GRANITE_OPTS = {"cache_len": 4096, "kv_heads": 8, "head_dim": 128}
 
 
 @pytest.mark.parametrize("dtype,block_k,want", [
-    (torch.bfloat16, 128, 73984),
-    (torch.bfloat16, 256, 141568),
-    (torch.bfloat16, 512, 276736),
+    # bf16: the 16-row query tile and a ring of block_k / 64 + 1 stages
+    (torch.bfloat16, 128, 108800),
+    (torch.bfloat16, 256, 178432),
+    (torch.bfloat16, 512, 317696),
     (torch.float32, 128, 139520),
     (torch.float32, 256, 272640),
 ])
@@ -221,7 +263,7 @@ def test_decode_autotuner_prunes_before_measuring():
         [{"block_k": 128}, {"block_k": 256}, {"block_k": 512}]
     assert DEFAULT_PARAMS["decode_attention"] == {"block_k": 256}
     assert measured == [{"block_k": 128}, {"block_k": 256}]
-    assert rec.pruned == {'{"block_k": 512}': 276736.0}
+    assert rec.pruned == {'{"block_k": 512}': 317696.0}
     assert rec.params == {"block_k": 128} == node.kernel_params
     assert rec.vmem_limit == H100_SMEM
 

@@ -9,9 +9,11 @@ import).  The file imports no JAX, so it runs on a GPU host that has none:
 Inputs come from numpy with a seed.  Tolerances: fp32 2e-5 for attention
 (prefill and decode) and 2e-4 for the SSD scan (its outputs sum hundreds of
 terms of magnitude ~10), bf16 3e-2, as in tests/test_kernels.py; the plain
-versions run in fp32 with TF32 off.  bf16 flash attention runs on the
-tensor cores and rounds P to bf16 before the PV product (at most 2**-8
-relative per term), which 3e-2 covers.
+versions run in fp32 with TF32 off.  bf16 flash and decode attention run on
+the tensor cores and round P to bf16 before the PV product (at most 2**-8
+relative per term), which 3e-2 covers.  The bf16 SSD passes run on the
+tensor cores too; they split every fp32 operand into two bf16 parts, so the
+final state keeps the fp32 tolerance.
 """
 
 import numpy as np
@@ -177,6 +179,10 @@ def test_flash_attention_raises_on_unsupported_dtype(cuda):
     (1, 200, 2, 32, 16, 128),                   # uneven
     (1, 257, 2, 32, 16, 128),
     (1, 1024, 4, 80, 64, 32),                   # zamba2 widths
+    (1, 100, 2, 64, 32, 128),                   # S < chunk
+    (1, 1, 2, 32, 16, 64),                      # S = 1
+    (2, 300, 3, 40, 24, 64),                    # P, N not multiples of 16
+    (2, 513, 2, 128, 64, 64),                   # P 128, B 2, ragged
 ])
 @pytest.mark.parametrize("la_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
@@ -209,6 +215,68 @@ def test_ssd_scan_takes_strided_b_c(cuda):
                              chunk=128)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
     _close(fin, fin_ref, SSD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_no_nan_from_large_decay(cuda, dtype):
+    """log_a = -20 at every step: exp(seg_i - seg_j) above the diagonal
+    and exp(-seg) would overflow; the kernels never form them."""
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (1, 128, 2, 16), dtype, cuda)
+    b = _randn(rng, (1, 128, 2, 8), dtype, cuda)
+    c = _randn(rng, (1, 128, 2, 8), dtype, cuda)
+    la = torch.full((1, 128, 2), -20.0, device=cuda)
+    y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=128)
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    y_ref, fin_ref = ssd_ref(x.float(), la, b.float(), c.float(), chunk=128)
+    _close(y, y_ref, SSD_TOL[dtype])
+    _close(fin, fin_ref, SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_ssd_scan_bf16_every_chunk_at_zamba2_widths(cuda, chunk):
+    """The node's inputs (b = c strided views of x, bf16 log_a) at every
+    autotuner candidate, against the plain version and its final state."""
+    rng = np.random.default_rng(8)
+    x = torch.tanh(_randn(rng, (1, 1000, 4, 80), torch.bfloat16, cuda))
+    la = -torch.nn.functional.softplus(x.mean(dim=-1))
+    bc = x[..., :64]
+    before = ssd_mod.launches
+    y, fin = ssd_mod.ssd_scan(x, la, bc, bc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1
+    y_ref, fin_ref = ssd_ref(x.float(), la.float(), bc.float(), bc.float(),
+                             chunk=chunk)
+    _close(y, y_ref, SSD_TOL[torch.bfloat16])
+    _close(fin, fin_ref, SSD_TOL[torch.float32])
+
+
+def test_ssd_scan_bf16_refuses_what_it_does_not_take(cuda):
+    """The bf16 passes take chunk <= 256, P <= 128 and N <= 64; they never
+    hand another shape to the plain version or the fp32 kernel."""
+    before = ssd_mod.launches
+    for P, N, chunk in ((136, 16, 64), (64, 72, 64), (64, 16, 512)):
+        x = torch.zeros((1, 1024, 1, P), device=cuda, dtype=torch.bfloat16)
+        b = torch.zeros((1, 1024, 1, N), device=cuda, dtype=torch.bfloat16)
+        la = torch.zeros((1, 1024, 1), device=cuda)
+        with pytest.raises(ValueError, match="bf16 kernel"):
+            ssd_mod.ssd_scan(x, la, b, b, chunk=chunk)
+    assert ssd_mod.launches == before
+
+
+def test_ssd_scan_bf16_kernels_use_tensor_cores_without_spills(cuda):
+    """Both tensor-core passes hold HMMA in every instance and spill
+    nothing; the fp32 SIMT kernel holds no HMMA."""
+    _build.build_all()
+    ptxas = ssd_mod.mma_passes(_build.ptxas_report("ssd_scan"))
+    counts = {f: c["HMMA"] for f, c in _build.sass_opcodes("ssd_scan").items()}
+    hmma = ssd_mod.mma_passes(counts)
+    assert sorted(hmma) == ["ssd_chunk_scan", "ssd_chunk_state"], counts
+    assert all(n > 0 for ns in hmma.values() for n in ns), counts
+    assert all(e["spill_stores"] == 0 for es in ptxas.values() for e in es), \
+        ptxas
+    simt = [n for f, n in counts.items() if "ssd_kernel" in f]
+    assert simt and not any(simt), counts
 
 
 def test_ssd_scan_refuses_oversized_chunk(cuda):
@@ -252,6 +320,10 @@ def _fitting_block_ks(q, k, device):
     (3, 1024, 4, 2, 256, None),                 # head_dim 256
     (6, 4096, 32, 8, 128, None),                # granite-8b heads
     (72, 256, 8, 8, 64, None),                  # a grid large enough unsplit
+    (2, 512, 16, 1, 128, None),                 # a group of 16, one tile
+    (2, 512, 32, 1, 64, None),                  # 32: two pieces of 16
+    (3, 700, 24, 2, 128, 20.0),                 # 12 a group, softcap
+    (2, 1024, 16, 4, 256, 50.0),                # head_dim 256, softcap
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, Smax, H, Hk, hd,
                                                softcap, dtype):
@@ -305,3 +377,57 @@ def test_decode_attention_refuses_oversized_tiles(cuda):
     with pytest.raises(ValueError, match="one dtype"):
         da_mod.decode_attention(q, k.float(), k, lengths)
     assert da_mod.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_past_length(cuda, dtype):
+    """Two rows over a long cache: the cache is split, and the short row's
+    later splits lie wholly past its length (m = -inf, l = 0)."""
+    q, k, v, lengths = _decode_inputs(9, 2, 4096, 8, 2, 128, dtype, cuda,
+                                      lengths=[100, 4096])
+    for bk in _fitting_block_ks(q, k, cuda):
+        plan = da_mod.split_plan(q, k, bk)
+        rows = plan["tiles_per_split"] * (64 if dtype == torch.bfloat16
+                                          else plan["block_k"])
+        assert plan["nsplit"] > 1 and rows < 4096 - 100
+        got = da_mod.decode_attention(q, k, v, lengths, block_k=bk)
+        want = decode_attention_ref(q.float(), k.float(), v.float(), lengths)
+        _close(got, want, TOL[dtype])
+
+
+def test_decode_attention_split_fills_one_wave(cuda):
+    """At granite-8b widths the grid is at most one wave of resident CTAs,
+    from the occupancy the card reports."""
+    q = torch.zeros((16, 32, 128), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((16, 4096, 8, 128), device=cuda, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bk in _fitting_block_ks(q, k, cuda):
+        plan = da_mod.split_plan(q, k, bk)
+        assert plan["ctas_per_sm"] >= 1
+        assert 16 * 8 * plan["nsplit"] <= max(16 * 8,
+                                              plan["ctas_per_sm"] * sms)
+
+
+def test_decode_attention_bf16_refuses_other_head_dims(cuda):
+    q = torch.zeros((2, 4, 96), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((2, 64, 2, 96), device=cuda, dtype=torch.bfloat16)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    before = da_mod.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        da_mod.decode_attention(q, k, k, lengths)
+    assert da_mod.launches == before
+
+
+def test_decode_attention_bf16_kernel_uses_tensor_cores_without_spills(cuda):
+    """Every bf16 instance holds HMMA and spills nothing; the fp32 SIMT
+    kernel holds no HMMA."""
+    _build.build_all()
+    ptxas = da_mod.mma_instances(_build.ptxas_report("decode_attention"))
+    counts = {f: c["HMMA"]
+              for f, c in _build.sass_opcodes("decode_attention").items()}
+    hmma = da_mod.mma_instances(counts)
+    assert sorted(hmma) == list(da_mod.MMA_HEAD_DIMS), counts
+    assert all(n > 0 for n in hmma.values()), counts
+    assert all(e["spill_stores"] == 0 for e in ptxas.values()), ptxas
+    simt = [n for f, n in counts.items() if "da_partial" in f]
+    assert simt and not any(simt), counts

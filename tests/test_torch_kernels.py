@@ -173,6 +173,11 @@ def test_wrappers_trace_on_meta():
      273664),
     ("ssd_scan", {"chunk": 128}, "float32", 80, 195072),
     ("ssd_scan", {"chunk": 256}, "float32", 80, 500736),
+    # bf16 SSD: the larger of the chunk-state and chunk-scan passes (the
+    # scan's c, b, x and S_in high/low parts, rows padded to 16k + 8)
+    ("ssd_scan", {"chunk": 32}, "bfloat16", 80, 37632),
+    ("ssd_scan", {"chunk": 64}, "bfloat16", 80, 52736),
+    ("ssd_scan", {"chunk": 256}, "bfloat16", 80, 143360),
     # bf16 route: q tile + two stages of k and v, rows padded to hd + 8
     ("flash_attention", {"block_q": 64, "block_k": 64}, "bfloat16", 80,
      56320),
@@ -187,6 +192,23 @@ def test_smem_footprint(kernel, params, dtype, hd, want):
     x = torch.empty(1, 4096, 32, hd, dtype=getattr(torch, dtype),
                     device="meta")
     assert smem_footprint(kernel, params, (x,), {"state_dim": 64}) == want
+
+
+@pytest.mark.parametrize("shape,N,chunk,dtype,L,want", [
+    # zamba2-2.7b widths: (B, H, nc, N, P) fp32 states and (B, H, nc) decays
+    ((1, 4096, 32, 80), 64, 32, torch.bfloat16, 32, 4 * 32 * 128 * 5121),
+    ((1, 4096, 32, 80), 64, 64, torch.bfloat16, 64, 4 * 32 * 64 * 5121),
+    ((1, 4096, 32, 80), 64, 256, torch.bfloat16, 256, 4 * 32 * 16 * 5121),
+    ((2, 200, 3, 40), 24, 64, torch.bfloat16, 64, 4 * 2 * 3 * 4 * 961),
+    ((1, 1, 2, 32), 16, 128, torch.bfloat16, 16, 4 * 2 * 1 * 513),  # S = 1
+    ((1, 4096, 32, 80), 64, 64, torch.float32, 64, 0),   # fp32: no passes
+])
+def test_ssd_workspace_bytes(shape, N, chunk, dtype, L, want):
+    """The bf16 route's chunk is min(chunk, S) rounded up to 16, and its
+    workspace holds one fp32 state and one decay per chunk."""
+    shapes = (shape, (*shape[:3], N))
+    assert ssd_mod.chunk_length(chunk, shape[1], dtype) == L
+    assert ssd_mod.workspace_bytes({"chunk": chunk}, shapes, dtype) == want
 
 
 def test_flash_tile_sizes_round_up_for_bf16():
@@ -242,6 +264,26 @@ def test_build_reports_parse_per_kernel():
     assert fa_mod.mma_instances({SIMT: 1}) == {}
 
 
+def test_ssd_mma_passes_pick_the_launched_instance():
+    """The bf16 passes are instances per log_a dtype and P's n8 tiles (P
+    rounded up to 16, then 4, 8, 10 or 16 tiles); a report reduces to the
+    instances a launch at width P runs."""
+    ns = "_ZN11repro_torch12_GLOBAL__N_1"
+    report = {f"{ns}14ssd_chunk_scanI13__nv_bfloat16Li10EEEvNS_9ChunkArgsE": 1,
+              f"{ns}15ssd_chunk_stateI13__nv_bfloat16Li10EEEvNS_9ChunkArgsE": 2,
+              f"{ns}14ssd_chunk_scanIfLi10EEEvNS_9ChunkArgsE": 3,
+              f"{ns}15ssd_chunk_stateIfLi16EEEvNS_9ChunkArgsE": 4,
+              f"{ns}10ssd_kernelIffEEvPKT_PKT0_S4_S4_PS2_Pfiiii": 5}
+    assert [ssd_mod.mma_tiles(P) for P in (16, 32, 40, 64, 80, 128)] == \
+        [4, 4, 8, 8, 10, 16]
+    assert ssd_mod.mma_passes(report) == {"ssd_chunk_scan": [1, 3],
+                                          "ssd_chunk_state": [2, 4]}
+    assert ssd_mod.mma_passes(report, 80, torch.bfloat16) == {
+        "ssd_chunk_scan": [1], "ssd_chunk_state": [2]}
+    assert ssd_mod.mma_passes(report, 128, torch.float32) == {
+        "ssd_chunk_state": [4]}
+
+
 def test_autotuner_prunes_over_the_shared_memory_limit():
     """Candidates over the per-block limit go to ``pruned`` with their byte
     count and are never measured."""
@@ -262,11 +304,17 @@ def test_autotuner_prunes_over_the_shared_memory_limit():
     assert all(v > H100_SMEM for v in rec.pruned.values())
     assert rec.params == {"block_q": 64, "block_k": 64}     # measured first
 
-    spec = TensorSpec((1, 512, 4, 80), torch.bfloat16)
+    # the fp32 SSD kernel keeps its chunk in shared memory: 256 is pruned;
+    # the bf16 passes fit every candidate
+    spec = TensorSpec((1, 512, 4, 80), torch.float32)
     node = ssd_scan_node("ssd", state_dim=64, device="cpu")
     rec = tuner.tune_node(node, resource="cloud", in_specs=[spec])
     assert set(rec.pruned) == {'{"chunk": 256}'}
     assert node.kernel_params == rec.params
+    spec = TensorSpec((1, 512, 4, 80), torch.bfloat16)
+    rec = tuner.tune_node(ssd_scan_node("ssd", state_dim=64, device="cpu"),
+                          resource="cloud", in_specs=[spec])
+    assert not rec.pruned and len(rec.trials) == 4
     with pytest.raises(RuntimeError, match="shared-memory limit"):
         KernelAutotuner(measure=measure, smem_limit=1024,
                         device="cpu").tune_node(
