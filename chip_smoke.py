@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths, Scission's loop over a kernel-bearing
-graph, each with seeded random weights in bf16:
+Drives the port's three main paths.  The first two are Scission's loop
+over a kernel-bearing graph, each with seeded random weights in bf16:
 
 * prefill: flash attention -> dense -> SSD scan -> dense at zamba2-2.7b
   widths (one sequence of 4096 tokens, 32 heads of head_dim 80, SSM state
@@ -38,6 +38,28 @@ rows their SASS opcode mix, the decode row ``nsplit`` and CTAs per SM, the
 SSD row the bytes of its workspace and its device time with b and c in
 buffers of their own (which must give the same output).
 
+The third path, the zoo (``zoo_phase``), is the paper's six steps on its
+18 CNNs at full size (batch 1, fp32 with TF32 off), through
+``benchmarks/common_torch.py``'s five-tier testbed and calibration.  Each
+net is built on the card, its blocks timed on every tier (fresh, no cache)
+and the 4G partition queried; the chosen and the best staged partitions
+must equal the whole graph bit for bit, and every block boundary must lie
+within ``ZOO_TOL`` (relative norm) of the port's CPU run of the same
+weights.  Each net's row gives its whole-graph time with CUDA events
+(device time and per call), the kernels' busy time in one call from
+``torch.profiler`` and the device's idle share, its fp32 roofline bound
+from the eager operators' FLOPs and bytes (``CompiledCostProvider``: each
+operator's inputs and outputs, unfused, each weight once), the sum of
+its block times, the three slowest blocks, the query time and the peak
+memory.  ResNet50 is then partitioned as a block DAG and run by
+``DagPipelineExecutor`` under three assignments (the best, the best staged
+one, and device and cloud in turn, so that branch and skip edges cross);
+MobileNetV2's DB is written, queried under 3G and 4G (each best run stage
+by stage against the whole graph) and without the cloud, and the run fails
+unless its best partition is device-native under 3G and cloud-native under
+4G; the network scale factors over which that flip holds are printed.  The zoo path launches
+none of the hand-written kernels, and the run fails if it does.
+
 Usage: ``python3 chip_smoke.py [--out DIR]`` from the repo root; ``--out``
 also writes the BenchmarkDBs and autotuner records there.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; any failure exits
@@ -67,10 +89,17 @@ TOL = 3e-2                                   # bf16 (tests/test_kernels.py)
 # most 2**-8 of each value.
 DEC_ATOL, DEC_RTOL, DEC_NORM = 0.1, 1e-2, 1e-2
 SLEEP_CYCLES = 2_000_000                     # ~1 ms at the H100's clocks
+# zoo: the card's tensor at every block boundary against the port's CPU run
+# of the same weights, fp32 with TF32 off: relative norm error.  Summation
+# order and cuDNN's algorithms differ (~1e-6); a layout or padding fault
+# gives errors of order 1.
+ZOO_TOL = 1e-4
 
 # dense peaks of the card (NVIDIA data sheets): bf16 tensor FLOP/s, bytes/s
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
          "H100": (989e12, 3.35e12)}
+# fp32 FLOP/s outside the tensor cores (the zoo's products, TF32 off)
+FP32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -596,6 +625,246 @@ def decode_phase(dev, resources, net, out_dir, launches):
         flops=flops, nbytes=nbytes, lib_ms=lib_ms)]
 
 
+def rel_err(got, want) -> float:
+    """Relative norm error of ``got`` against ``want`` (in float64)."""
+    import torch
+    got, want = got.double().cpu(), want.double().cpu()
+    return (torch.linalg.vector_norm(got - want)
+            / torch.linalg.vector_norm(want)).item()
+
+
+def run_blocks(fns, x) -> list:
+    """Every block boundary's tensor of a chain of block callables."""
+    outs = []
+    for f in fns:
+        x = f(x)
+        outs.append(x)
+    return outs
+
+
+def device_busy_ms(fn) -> float:
+    """Device time (ms) of the kernels one call of ``fn()`` launches, from
+    ``torch.profiler``; 0.0 where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def zoo_net(name, dev, peak_fp32, peak_bw) -> dict:
+    """One zoo net at full size on the card: its blocks timed on the
+    five-tier testbed, the 4G query, the chosen partitions against the
+    whole graph (bit for bit), every block boundary against the port's CPU
+    run of the same weights, and the whole graph timed."""
+    import torch
+    from benchmarks import common_torch as ct
+    from repro_torch.core import (CompiledCostProvider, Query, Resource,
+                                  fuse_blocks)
+    from repro_torch.core.resources import H100_SXM
+    from repro_torch.models import cnn_zoo
+    from repro_torch.runtime import PipelineExecutor
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    graph = cnn_zoo.build(name, dev, seed=SEED)
+    blocks = fuse_blocks(graph)
+    fns = [b.make_callable() for b in blocks]
+    gen = torch.Generator().manual_seed(SEED)
+    x_cpu = torch.randn(graph.input_spec.shape, generator=gen)
+    x = x_cpu.to(dev)
+
+    # Steps 2-6 on the five tiers, fresh (no cache)
+    s = ct.scission_for("4g", device=dev)
+    db = s.benchmark(graph)
+    res = s.query(name, Query(top_n=20))
+    cloud = [r.mean_time_s for r in db.records["cloud"]]
+    slow = sorted(range(len(cloud)), key=cloud.__getitem__)[-3:][::-1]
+
+    # the chosen partition and the best staged one against the whole graph
+    outs = run_blocks(fns, x)
+    whole = outs[-1]
+    staged = next((c for c in res.configs[1:] if len(c.segments) > 1),
+                  None)
+    runs = {"best": res.best} if staged is None else {
+        "best": res.best, "staged": staged}
+    for label, cfg in runs.items():
+        y, _ = PipelineExecutor(graph, cfg, s.network, source="device",
+                                device=dev).run(x)
+        if y.shape != whole.shape or not torch.equal(y, whole):
+            raise RuntimeError(f"zoo {name}: the {label} partition "
+                               f"{cfg.describe()} differs from the "
+                               "whole-graph run")
+
+    # one whole-graph call: CUDA events on an idle device, and the kernels'
+    # device time under the profiler (timed before the CPU run below, whose
+    # worker threads would compete with the host's launches)
+    def call():
+        return run_blocks(fns, x)[-1]
+
+    call_ms, busy = time_ms(call, hold=False), device_busy_ms(call)
+
+    # every block boundary against the port's CPU run of the same weights
+    ref = cnn_zoo.build(name, "cpu", seed=SEED)
+    ref_outs = run_blocks([b.make_callable() for b in fuse_blocks(ref)],
+                          x_cpu)
+    errs = [rel_err(o, r) for o, r in zip(outs, ref_outs)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    if not errs[worst] <= ZOO_TOL:
+        raise RuntimeError(f"zoo {name}: block {worst} "
+                           f"({blocks[worst].name}) differs from the CPU run "
+                           f"by {errs[worst]:.3g} (relative norm; tol "
+                           f"{ZOO_TOL})")
+    del ref, ref_outs, outs
+
+    # the roofline of the operators the blocks run, on the H100's fp32
+    # (no tensor core) and HBM peaks
+    h100 = Resource("cloud", "cloud", H100_SXM)
+    costs = [CompiledCostProvider().measure(b, h100, 1) for b in blocks]
+    flops = sum(c[2] for c in costs)
+    nbytes = sum(c[3] for c in costs)
+    row = dict(
+        name=name, blocks=len(blocks), points=len(blocks) - 1,
+        flops=flops, nbytes=nbytes, bound_ms=max(flops / peak_fp32,
+                                                 nbytes / peak_bw) * 1e3,
+        cloud_ms=sum(cloud) * 1e3, call_ms=call_ms, busy_ms=busy,
+        idle=(1.0 - busy / call_ms) if busy else None,
+        slowest=[(blocks[i].name, cloud[i] * 1e3) for i in slow],
+        query_ms=res.query_time_s * 1e3, best=res.best.describe(),
+        partitions=list(runs), max_err=errs[worst],
+        mem_mb=torch.cuda.max_memory_allocated(dev) / 1e6)
+    del graph, blocks, fns, whole, s, db
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_phase(dev, out_dir, peak_fp32, peak_bw) -> None:
+    """The paper's six steps on the CNN zoo at full size (224x224x3 or
+    299/331 inputs, batch 1, fp32 with TF32 off): the 18 nets timed and
+    checked one at a time, ResNet50 partitioned as a block DAG, and
+    MobileNetV2's 3G/4G decision from a DB timed on the card."""
+    import torch
+    from benchmarks import common_torch as ct
+    from repro_torch.core import (PartitionConfig, Query, Segment,
+                                  fuse_block_dag, fuse_blocks)
+    from repro_torch.models import cnn_zoo
+    from repro_torch.runtime import DagPipelineExecutor, PipelineExecutor
+
+    flags = ct.fp32_flags()
+    print(f"zoo flags {flags}; TIME_SCALE {ct.TIME_SCALE:.6g} (card "
+          f"{ct.CARD_MOBILENETV2_S * 1e3:.4g} ms, CPU "
+          f"{ct.CPU_MOBILENETV2_S * 1e3:.4g} ms for MobileNetV2)")
+
+    # -- the 18 nets, one at a time -------------------------------------
+    for name in cnn_zoo.ZOO:
+        r = zoo_net(name, dev, peak_fp32, peak_bw)
+        idle = f"{r['idle']:.3f}" if r["idle"] is not None else \
+            "not measured"
+        print(f"zoo {name}: {r['blocks']} blocks ({r['points']} points), "
+              f"{r['flops'] / 1e9:.3f} GFLOP, {r['nbytes'] / 1e6:.1f} MB "
+              f"accessed by the eager operators; whole graph {r['call_ms']:.4f} ms per call (CUDA "
+              f"events), kernels busy {r['busy_ms']:.4f} ms of it "
+              f"(profiler), idle share {idle}; bound "
+              f"{r['bound_ms']:.4f} ms (fp32 {peak_fp32 / 1e12:.0f} TFLOP/s, "
+              f"{peak_bw / 1e12:.2f} TB/s); sum of cloud block times "
+              f"{r['cloud_ms']:.4f} ms, slowest "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in r["slowest"])
+              + f"; 4G query {r['query_ms']:.1f} ms, best {r['best']}; "
+              f"partitions {r['partitions']} equal the whole graph; max "
+              f"block rel err vs CPU {r['max_err']:.3g} (tol {ZOO_TOL}); "
+              f"peak memory {r['mem_mb']:.1f} MB")
+
+    # -- ResNet50 as a block DAG under 4G ---------------------------------
+    graph = cnn_zoo.build("ResNet50", dev, seed=SEED)
+    s = ct.scission_for("4g", device=dev)
+    s.benchmark(graph, dag=True)
+    res = s.query("ResNet50", Query(top_n=20))
+    x = torch.randn(graph.input_spec.shape,
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    whole = run_blocks([b.make_callable() for b in fuse_blocks(graph)],
+                       x)[-1]
+    staged = next((c for c in res.configs[1:]
+                   if len(set(c.assignment)) > 1), None)
+    # every block edge across two resources, branch and skip edges too
+    n = len(fuse_block_dag(graph))
+    interleaved = PartitionConfig("ResNet50", tuple(
+        Segment(("device", "cloud")[i % 2], i, i) for i in range(n)),
+        0.0, {}, 0.0, 0.0)
+    for label, cfg in (("best", res.best), ("staged", staged),
+                       ("interleaved", interleaved)):
+        if cfg is None:
+            continue
+        pipe = DagPipelineExecutor(graph, cfg, s.network, source="device",
+                                   device=dev)
+        y, timings = pipe.run(x, collect_timing=True)
+        if not torch.equal(y, whole):
+            raise RuntimeError(f"ResNet50 DAG {label} partition differs "
+                               "from the whole-graph run")
+        lat = pipe.simulated_latency(
+            timings, {r.name: r.speed_factor for r in s.resources})
+        crossing = sum(any(t.comm_in_s) for t in timings)
+        print(f"zoo ResNet50 DAG ({len(pipe.dag)} blocks, query "
+              f"{res.strategy} {res.query_time_s * 1e3:.1f} ms) {label}: "
+              f"{cfg.describe()[:160]}; {crossing} blocks fed over a link; "
+              f"equals the whole graph; simulated latency "
+              f"{lat * 1e3:.3f} ms")
+    del graph, s, x, whole
+    torch.cuda.empty_cache()
+
+    # -- MobileNetV2: the paper's six steps and the 3G/4G flip -------------
+    graph = cnn_zoo.build("MobileNetV2", dev, seed=SEED)      # Step 1
+    s3 = ct.scission_for("3g", device=dev)
+    db = s3.benchmark(graph)                                  # Steps 2-3
+    whole_s = ct.tier_times(db, s3.resources)
+    print("zoo MobileNetV2 TimingProvider time, each tier's block times "
+          "over its speed factor: " + ", ".join(
+              f"{k} {v * 1e3:.4f} ms" for k, v in whole_s.items())
+          + f"; median {statistics.median(whole_s.values()) * 1e3:.4f} ms "
+          f"(the calibration took {ct.CARD_MOBILENETV2_S * 1e3:.4f} ms)")
+    if out_dir:                                               # Step 4
+        os.makedirs(out_dir, exist_ok=True)
+        s3.save("MobileNetV2", os.path.join(out_dir,
+                                            "chip_smoke_zoo_db.json"))
+    s4 = ct.scission_for("4g", device=dev)
+    s4.load(db)
+    x = torch.randn(graph.input_spec.shape,
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    whole = run_blocks([b.make_callable() for b in fuse_blocks(graph)],
+                       x)[-1]
+    best = {}
+    for net, sc in (("3g", s3), ("4g", s4)):
+        res = sc.query("MobileNetV2", Query(top_n=3))         # Step 5
+        best[net] = res.best
+        y, _ = PipelineExecutor(graph, res.best, sc.network,  # Step 6
+                                source="device", device=dev).run(x)
+        if not torch.equal(y, whole):
+            raise RuntimeError(f"MobileNetV2's best partition under {net} "
+                               "differs from the whole-graph run")
+        print(f"zoo MobileNetV2 [{net}] top-3 (query "
+              f"{res.query_time_s * 1e3:.1f} ms): "
+              + "; ".join(c.describe() for c in res.configs)
+              + "; the best run stage by stage equals the whole graph")
+    private = s4.query("MobileNetV2",
+                       Query(top_n=1, exclude=("cloud", "cloud_gpu"))).best
+    print(f"zoo MobileNetV2 [4g, privacy: no cloud] {private.describe()}")
+
+    lo, hi = ct.flip_range(db, s3.resources)
+    print(f"zoo MobileNetV2 flip (device-native under 3G, cloud-native "
+          f"under 4G) holds for network scale factors {lo:.4g}-{hi:.4g} "
+          "on top of TIME_SCALE (1 = the calibration)")
+    if {"cloud", "cloud_gpu"} & set(private.resources):
+        raise RuntimeError("the privacy query placed a block on the cloud")
+    if not ct.flips(best["3g"], best["4g"]):
+        raise RuntimeError(
+            "MobileNetV2's decision does not flip: best under 3G "
+            f"{best['3g'].describe()}, under 4G {best['4g'].describe()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -647,6 +916,22 @@ def main() -> int:
     kernels = prefill_phase(dev, resources, net, args.out, launches)
     torch.cuda.empty_cache()          # the prefill tensors are gone
     kernels += decode_phase(dev, resources, net, args.out, launches)
+    torch.cuda.empty_cache()
+
+    # the zoo path runs none of the hand-written kernels
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    sys.path.insert(0, str(ROOT))
+    fp32 = next(v for k, v in FP32_PEAKS.items() if k in name)
+    zoo_phase(dev, args.out, fp32, peak_bw)
+    zoo_launches = {"flash_attention": fa_mod.launches,
+                    "ssd_scan": ssd_mod.launches,
+                    "decode_attention": da_mod.launches}
+    print(f"zoo-path launches {zoo_launches}")
+    if any(zoo_launches.values()):
+        raise RuntimeError("the zoo path launched a hand-written kernel")
 
     report = []
     for r in kernels:

@@ -7,7 +7,15 @@ instead of a terse ``ValueError`` naming a node *index*:
   strictly earlier: the topological-insertion invariant), no dangling
   predecessor indices, exactly one sink (the last node), no orphan
   sources beyond the input node, every non-input node callable;
-* series-parallel structure (SCN309/SCN310) of branchy graphs.
+* shape-chain consistency (``check_shapes=True``, traced graphs only) —
+  each node's declared ``out_spec`` must equal the spec recomputed from its
+  predecessors' ``out_spec`` s by running its ``apply`` on ``meta``
+  tensors (SCN306), so a stale or hand-edited spec is caught at the node
+  that declares it;
+* series-parallel structure (SCN309/SCN310) of branchy graphs;
+* benchmark cross-check (:func:`lint_db_against_graph`, SCN307) — a DB's
+  recorded per-block output bytes must match the graph the blocks were
+  fused from.
 
 ``LayerGraph.validate`` raises :class:`GraphLintError` (a ``ValueError``
 subclass, so ``except ValueError`` call sites keep working) that carries
@@ -18,7 +26,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from .diagnostics import Diagnostic, ERROR, errors, render_report
+from .diagnostics import Diagnostic, ERROR, INFO, errors, render_report
 
 
 class GraphLintError(ValueError):
@@ -40,9 +48,14 @@ def _name(graph: Any, i: int) -> str:
     return f"node {i}"
 
 
-def lint_graph(graph: Any) -> list[Diagnostic]:
+def lint_graph(graph: Any, *, check_shapes: bool = False) -> list[Diagnostic]:
     """Well-formedness diagnostics for a
-    :class:`repro_torch.core.graph.LayerGraph`."""
+    :class:`repro_torch.core.graph.LayerGraph`.
+
+    With ``check_shapes=True`` the declared ``out_spec`` of every traced
+    node is re-derived from its predecessors and compared (SCN306); an
+    untraced graph gets a single SCN308 info instead.
+    """
     diags: list[Diagnostic] = []
     n = len(graph.nodes)
     if n == 0:
@@ -95,6 +108,15 @@ def lint_graph(graph: Any) -> list[Diagnostic]:
                 subject=graph.nodes[i].name,
                 hint="every non-input node needs a callable apply"))
 
+    if check_shapes and not errors(diags):
+        if any(node.out_spec is None for node in graph.nodes):
+            diags.append(Diagnostic(
+                "SCN308", INFO,
+                f"graph {graph.name!r} is untraced: shape-chain checks "
+                "skipped", subject=graph.name,
+                hint="call graph.trace() first"))
+        else:
+            diags.extend(_lint_shape_chain(graph))
     if not errors(diags):
         diags.extend(_lint_sp_structure(graph))
     return diags
@@ -146,4 +168,69 @@ def _lint_sp_structure(graph: Any) -> list[Diagnostic]:
             subject=graph.name,
             hint="fuse with fuse_block_dag / benchmark(dag=True) to "
                  "partition branches across resources"))
+    return diags
+
+
+def _lint_shape_chain(graph: Any) -> list[Diagnostic]:
+    """SCN306: re-derive each node's out_spec from its predecessors'
+    declared specs, on ``meta`` tensors, and compare.  Runs node-at-a-time
+    so a mismatch is reported at the node that *declares* the stale spec,
+    not at the first downstream consumer that trips over it."""
+    import torch
+
+    diags: list[Diagnostic] = []
+    for i in range(1, len(graph.nodes)):
+        node = graph.nodes[i]
+        ins = [torch.empty(graph.nodes[p].out_spec.shape,
+                           dtype=graph.nodes[p].out_spec.dtype, device="meta")
+               for p in graph.preds[i]]
+        try:
+            computed = node.apply(*ins)
+        except Exception as e:                      # noqa: BLE001
+            diags.append(Diagnostic(
+                "SCN306", ERROR,
+                f"{_name(graph, i)}: apply does not accept its "
+                f"predecessors' out_specs ({type(e).__name__}: {e})",
+                subject=node.name,
+                hint="the upstream node's out_spec is probably stale"))
+            continue
+        declared = node.out_spec
+        if (tuple(computed.shape) != tuple(declared.shape)
+                or computed.dtype != declared.dtype):
+            diags.append(Diagnostic(
+                "SCN306", ERROR,
+                f"{_name(graph, i)} declares out_spec "
+                f"{tuple(declared.shape)}/{declared.dtype} but its "
+                f"predecessors' specs compute "
+                f"{tuple(computed.shape)}/{computed.dtype}",
+                subject=node.name,
+                hint="re-run graph.trace() after editing the graph"))
+    return diags
+
+
+def lint_db_against_graph(db: Any, blocks: list[Any]) -> list[Diagnostic]:
+    """SCN307: a benchmark DB's recorded output bytes vs the graph's
+    computed ones — catches a DB paired with the wrong (or since-edited)
+    model graph before its transfer costs poison a solve."""
+    from .diagnostics import WARNING
+
+    diags: list[Diagnostic] = []
+    if db.n_blocks != len(blocks):
+        diags.append(Diagnostic(
+            "SCN307", WARNING,
+            f"DB for model {db.model!r} records {db.n_blocks} blocks but "
+            f"the graph fuses into {len(blocks)}",
+            subject=db.model,
+            hint="re-run benchmark_model against the current graph"))
+        return diags
+    for i, blk in enumerate(blocks):
+        recorded = float(db.output_bytes(i))
+        computed = float(blk.output_bytes)
+        if recorded != computed:
+            diags.append(Diagnostic(
+                "SCN307", WARNING,
+                f"block {i} ({blk.name}): DB records "
+                f"{recorded:.0f} output bytes but the graph computes "
+                f"{computed:.0f}", subject=blk.name,
+                hint="re-run benchmark_model against the current graph"))
     return diags

@@ -6,6 +6,8 @@ tree of tensors on a given device.  Keys and dtypes are kept.  numpy has no
 bfloat16 of its own: arrays that came from JAX carry ``ml_dtypes``'
 ``bfloat16``, which is carried over bit for bit through a ``uint16`` view
 (without importing ``ml_dtypes``, which the card's host may lack).
+:func:`zoo_params_to_torch` carries a zoo net's weights into the layout of
+``repro_torch.models.cnn_zoo``'s modules.
 """
 
 from __future__ import annotations
@@ -39,3 +41,20 @@ def to_torch(tree: Any, device: str | torch.device = "cuda") -> Any:
     if isinstance(tree, tuple):
         return tuple(to_torch(v, device) for v in tree)
     return array_to_tensor(tree, device)
+
+
+def zoo_params_to_torch(params: dict[str, dict[str, Any]],
+                        device: str | torch.device = "cuda"
+                        ) -> dict[str, torch.Tensor]:
+    """A zoo net's ``{node: {"w": ..., "b": ...}}`` numpy weights as the
+    state dict of its ``cnn_zoo`` graph (``"<node>.weight"``,
+    ``"<node>.bias"``): conv weights from HWIO (``(k, k, cin/groups,
+    cout)``) to OIHW (``(cout, cin/groups, k, k)``), dense weights from
+    ``(cin, cout)`` to ``(cout, cin)``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        w = np.asarray(p["w"])
+        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+        out[f"{name}.weight"] = array_to_tensor(w, device)
+        out[f"{name}.bias"] = array_to_tensor(p["b"], device)
+    return out

@@ -3,11 +3,12 @@
 from .graph import (Block, BlockDag, LayerGraph, LayerNode, SPNode,
                     TensorSpec, fuse_block_dag, fuse_blocks, linear_graph,
                     sp_summary)
-from .resources import DeviceModel, Resource, paper_testbed
+from .resources import DeviceModel, H100_SXM, Resource, paper_testbed
 from .network import (Link, NetworkModel, THREE_G, FOUR_G, WIRED, EDGE_CLOUD,
                       paper_network)
 from .bench import (BenchmarkDB, BlockBenchmark, TimingProvider,
-                    AnalyticProvider, benchmark_model, benchmark_batches)
+                    CompiledCostProvider, AnalyticProvider, benchmark_model,
+                    benchmark_batches)
 from .partition import (Segment, PartitionConfig, CostModel, Objective,
                         ThroughputObjective, LATENCY, TRANSFER, THROUGHPUT,
                         Constraints, PartitionLattice, BottleneckLattice,
@@ -23,10 +24,11 @@ from .planner import Scission
 __all__ = [
     "Block", "BlockDag", "LayerGraph", "LayerNode", "SPNode", "TensorSpec",
     "fuse_block_dag", "fuse_blocks", "linear_graph", "sp_summary",
-    "DeviceModel", "Resource", "paper_testbed",
+    "DeviceModel", "H100_SXM", "Resource", "paper_testbed",
     "Link", "NetworkModel", "THREE_G", "FOUR_G", "WIRED", "EDGE_CLOUD",
     "paper_network",
-    "BenchmarkDB", "BlockBenchmark", "TimingProvider", "AnalyticProvider",
+    "BenchmarkDB", "BlockBenchmark", "TimingProvider",
+    "CompiledCostProvider", "AnalyticProvider",
     "benchmark_model", "benchmark_batches",
     "Segment", "PartitionConfig", "CostModel", "Objective",
     "ThroughputObjective", "LATENCY", "TRANSFER", "THROUGHPUT",

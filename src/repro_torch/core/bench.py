@@ -12,12 +12,14 @@ replicated stages.  Unmeasured batch sizes are answered by log-linear
 interpolation between measured points, clamped to the measured range (never
 extrapolated).
 
-Two providers implement the paper's "empirical, not estimated" principle:
+Three providers implement the paper's "empirical, not estimated" principle:
 
 * :class:`TimingProvider` — wall-clock of the block on one device (the
   card, by default), scaled by the resource's ``speed_factor``.  This is the
   **paper-faithful** path (the measuring device plays the 'Cloud' box; the
   paper itself emulates the other tiers' network conditions the same way).
+* :class:`CompiledCostProvider` — the FLOPs and bytes the block's operators
+  count on ``meta`` tensors, through the DeviceModel.
 * :class:`AnalyticProvider` — the graph's analytic per-layer FLOPs through
   the DeviceModel.  Cheapest; used for very large models and in tests.
 """
@@ -35,6 +37,9 @@ from typing import Any, Protocol
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
 
 from .._device import resolve_device, synchronize
 from ..kernels.substrate import KernelAutotuner
@@ -323,6 +328,62 @@ class TimingProvider:
         mean = statistics.fmean(samples) * resource.speed_factor
         std = (statistics.pstdev(samples) if len(samples) > 1 else 0.0)
         return mean, std * resource.speed_factor, 0.0, 0.0
+
+
+class _BytesAccessed(TorchDispatchMode):
+    """Sums the bytes of every operator's tensor inputs and outputs, as
+    XLA's "bytes accessed" counts an operation's operands and results, but
+    per unfused eager operator: an in-place activation reads and writes its
+    tensor again, and an explicit pad is a copy.  View operators move
+    nothing and are skipped.  So is a copy onto another device: run on
+    ``meta`` inputs, such a copy only makes the ``meta`` stand-in of a
+    weight that lives on the card or the CPU, and the weight is counted
+    where an operator reads it."""
+
+    def __init__(self):
+        super().__init__()
+        self.nbytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        moved = func is torch.ops.aten._to_copy.default and \
+            args[0].device != out.device
+        if not func.is_view and not moved:
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.nbytes += t.numel() * t.element_size()
+        return out
+
+
+class CompiledCostProvider:
+    """FLOPs and bytes of the block's operators, through the device
+    roofline.
+
+    The counterpart of the reference's compiled-artifact costs: the block
+    runs once on ``meta`` tensors at the requested batch (no data, no
+    device), ``torch.utils.flop_counter.FlopCounterMode`` counts its FLOPs
+    and every eager operator's inputs and outputs are counted as bytes
+    accessed (:class:`_BytesAccessed`), the same wherever the block's
+    weights live.  Both go through the resource's ``DeviceModel.layer_time``.
+    """
+
+    def __init__(self, tuner: KernelAutotuner | None = None):
+        self.tuner = tuner
+
+    def measure(self, block: Block, resource: Resource, runs: int,
+                batch: int = 1) -> tuple[float, float, float, float]:
+        if self.tuner is not None:
+            self.tuner.tune_block(block, resource=resource.name)
+        specs = [_batched_input(s, batch) for s in block.in_specs]
+        xs = [torch.empty(s.shape, dtype=s.dtype, device="meta")
+              for s in specs]
+        counter = _BytesAccessed()
+        with FlopCounterMode(display=False) as flop_mode, counter:
+            block.make_callable()(*xs)
+        flops = float(flop_mode.get_total_flops())
+        nbytes = float(counter.nbytes)
+        t = resource.device.layer_time(flops, nbytes)
+        return t, 0.0, flops, nbytes
 
 
 class AnalyticProvider:

@@ -75,6 +75,12 @@ CLOUD_VM = DeviceModel("cloud-8c-4.5ghz", effective_flops=1.8e11, mem_bw=4.0e10,
 GTX_1070 = DeviceModel("gtx1070", effective_flops=5.0e12, mem_bw=2.56e11,
                        dispatch_s=30e-6)
 
+# The card the port runs on.  Not sustained rates, which no run has
+# measured yet: NVIDIA's data-sheet peaks of the H100 SXM at its 700 W power
+# limit, float32 outside the tensor cores (the zoo runs in fp32 with TF32
+# off) and HBM3.  ``dispatch_s`` keeps the class default, unmeasured.
+H100_SXM = DeviceModel("h100-sxm", effective_flops=67e12, mem_bw=3.35e12)
+
 
 # -- the paper's testbed (Table II) -----------------------------------------
 

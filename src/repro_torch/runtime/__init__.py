@@ -1,3 +1,5 @@
-from .pipeline import PipelineExecutor, Stage, StageTiming
+from .pipeline import (BlockTiming, DagPipelineExecutor, PipelineExecutor,
+                       Stage, StageTiming)
 
-__all__ = ["PipelineExecutor", "Stage", "StageTiming"]
+__all__ = ["BlockTiming", "DagPipelineExecutor", "PipelineExecutor", "Stage",
+           "StageTiming"]

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the CNN
+zoo's layer forms against their CPU runs, on the card.
 
 Marked ``gpu``: every test takes the ``cuda`` fixture, which skips where
 ``torch.cuda.is_available()`` is false (decided at run time, never at
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import TensorSpec, fuse_blocks
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
@@ -27,6 +29,7 @@ from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref, ssd_ref)
 from repro_torch.kernels.substrate import card_smem_limit
+from repro_torch.models import cnn_zoo
 
 pytestmark = pytest.mark.gpu
 
@@ -431,3 +434,116 @@ def test_decode_attention_bf16_kernel_uses_tensor_cores_without_spills(cuda):
     assert all(e["spill_stores"] == 0 for e in ptxas.values()), ptxas
     simt = [n for f, n in counts.items() if "da_partial" in f]
     assert simt and not any(simt), counts
+
+
+# -- the CNN zoo's layer forms: the card against the CPU ----------------------
+# fp32 with TF32 off on both; summation order and cuDNN's algorithms differ,
+# so each output is held at a relative norm error of 1e-5.  A layout or
+# padding fault gives errors of order 1.
+ZOO_LAYER_TOL = 1e-5
+
+ZOO_LAYERS = {  # input (H, W, C), the layer's constructor
+    "conv3x3_same_s2_odd": ((17, 17, 5), lambda g: g.conv("l", 5, 8,
+                                                         stride=2)),
+    "conv7x7_same_s2_even": ((30, 30, 3), lambda g: g.conv("l", 3, 16, k=7,
+                                                          stride=2)),
+    "conv3x3_valid_s2": ((19, 19, 3), lambda g: g.conv(
+        "l", 3, 8, stride=2, padding="VALID")),
+    "dwconv_s1_relu6": ((13, 13, 24), lambda g: g.dw_conv("l", 24)),
+    "dwconv_s2_even": ((14, 14, 24), lambda g: g.dw_conv("l", 24, stride=2)),
+    "dwconv5_s1": ((11, 11, 16), lambda g: g.dw_conv("l", 16, k=5)),
+    "maxpool_same_s2_even": ((16, 16, 8), lambda g: g.pool(
+        "l", k=3, stride=2, padding="SAME")),
+    "maxpool_same_s2_odd": ((15, 15, 8), lambda g: g.pool(
+        "l", k=3, stride=2, padding="SAME")),
+    "maxpool_valid_k3_s2": ((15, 15, 8), lambda g: g.pool("l", k=3,
+                                                          stride=2)),
+    "avgpool_same_s1": ((9, 9, 8), lambda g: g.pool(
+        "l", k=3, stride=1, kind="avg", padding="SAME")),
+    "avgpool_same_s2_even": ((10, 10, 8), lambda g: g.pool(
+        "l", k=3, stride=2, kind="avg", padding="SAME")),
+    "avgpool_valid_k2": ((14, 14, 8), lambda g: g.pool("l", kind="avg")),
+    "gap": ((7, 7, 32), lambda g: g.gap("l")),
+}
+
+
+def _zoo_graph(device, shape, make, seed=0):
+    g = cnn_zoo.ZooGraph("layer", torch.device(device), seed)
+    prev = g.input(TensorSpec((1, *shape), torch.float32))
+    g.add(make(g), [prev])
+    g.trace()
+    return g
+
+
+def _rel(got, want):
+    return (torch.linalg.vector_norm(got.cpu().double() - want.double())
+            / torch.linalg.vector_norm(want.double())).item()
+
+
+@pytest.mark.parametrize("form", sorted(ZOO_LAYERS))
+def test_zoo_layer_matches_cpu(cuda, form):
+    shape, make = ZOO_LAYERS[form]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, *shape)).astype(np.float32))
+    ref, card = _zoo_graph("cpu", shape, make), _zoo_graph(cuda, shape, make)
+    want = ref.nodes[1].apply(x)
+    got = card.nodes[1].apply(x.to(cuda))
+    assert got.shape == want.shape == card.nodes[1].out_spec.shape
+    assert got.is_contiguous()
+    assert _rel(got, want) <= ZOO_LAYER_TOL
+
+
+def test_zoo_flatten_dense_matches_cpu(cuda):
+    """VGG's head: flatten of an NHWC tensor (H, W, C order), dense + relu,
+    dense + softmax."""
+    from repro_torch.core import TensorSpec
+    from repro_torch.models.cnn_zoo import ZooGraph
+
+    def graph(device):
+        g = ZooGraph("head", torch.device(device), 0)
+        prev = g.input(TensorSpec((2, 3, 3, 8), torch.float32))
+        prev = g.add(g.flatten(), [prev])
+        prev = g.add(g.dense("fc", 72, 40, act="relu"), [prev])
+        g.add(g.dense("pred", 40, 10, act="softmax"), [prev])
+        g.trace()
+        return g
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 3, 3, 8)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        h = x.to(dev)
+        for node in graph(dev).nodes[1:]:
+            h = node.apply(h)
+        outs.append(h)
+    assert _rel(outs[1], outs[0]) <= ZOO_LAYER_TOL
+
+
+def test_zoo_build_on_cuda_traces_like_meta(cuda):
+    g = cnn_zoo.build("MobileNetV2", cuda)
+    meta = cnn_zoo.build("MobileNetV2", "meta")
+    assert [n.out_spec for n in g.nodes] == [n.out_spec for n in meta.nodes]
+    assert all(p.device.type == "cuda" for p in g.modules.parameters())
+    assert [b.node_ids for b in fuse_blocks(g)] == \
+        [b.node_ids for b in fuse_blocks(meta)]
+
+
+def test_zoo_block_launches_no_kernel_and_copies_no_layout(cuda):
+    """A ResNet50 block (1x1/3x3 convs, a residual add) launches none of the
+    hand-written kernels, and no operator copies a tensor into another
+    layout (no aten::contiguous, clone or copy_ under it)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = cnn_zoo.build("ResNet50", cuda)
+    blk = fuse_blocks(g)[3]
+    fn = blk.make_callable()
+    x = torch.randn(blk.in_spec.shape, device=cuda)
+    fn(x)
+    torch.cuda.synchronize()
+    before = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    assert (fa_mod.launches, ssd_mod.launches, da_mod.launches) == before
+    names = {e.name for e in prof.events()}
+    assert not names & {"aten::contiguous", "aten::clone", "aten::copy_"}, \
+        sorted(names)

@@ -23,11 +23,13 @@ from repro_torch.kernels import (KernelAutotuner, _build,
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.runtime import PipelineExecutor
+from repro_torch.models import cnn_zoo
+from repro_torch.runtime import DagPipelineExecutor, PipelineExecutor
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = SRC_FILES + sorted((ROOT / "benchmarks").glob("*_torch.py")) + \
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -52,6 +54,7 @@ def test_port_import_leaves_jax_unloaded():
             " repro_torch.kernels.ops, repro_torch.kernels.ref,"
             " repro_torch.runtime, repro_torch.convert,"
             " repro_torch.kernel_graph, repro_torch.analysis.plan_lint,"
+            " repro_torch.models.cnn_zoo, repro_torch.runtime.elastic,"
             " repro_torch.analysis.cost_lint, repro_torch.analysis.graph_lint;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')];"
@@ -91,6 +94,11 @@ _ENTRY_POINTS = {
         cache_len=8, kv_heads=1, head_dim=8, **kw),
     "ssd_scan_node": lambda **kw: ssd_scan_node(**kw),
     "to_torch": lambda **kw: convert.to_torch({"w": np.zeros(2)}, **kw),
+    "zoo_params_to_torch": lambda **kw: convert.zoo_params_to_torch(
+        {"fc": {"w": np.zeros((2, 3)), "b": np.zeros(3)}}, **kw),
+    "cnn_zoo.build": lambda **kw: cnn_zoo.build("MobileNet", **kw),
+    "DagPipelineExecutor": lambda **kw: DagPipelineExecutor(
+        _graph(), _config(), **kw),
 }
 
 
@@ -162,6 +170,6 @@ def test_chip_smoke_fails_without_cuda(tmp_path, where):
 def test_port_calls_no_library_attention(needle):
     """The kernels' work is the port's own: no fused library attention and
     no compiled plain version (chip_smoke.py times SDPA as a yardstick)."""
-    hits = [p.relative_to(ROOT) for p in PORT_FILES[:-1]
+    hits = [p.relative_to(ROOT) for p in SRC_FILES
             if needle in p.read_text()]
     assert not hits, f"{needle} in {hits}"
