@@ -5,9 +5,10 @@ paper's 'Cloud' box; the other tiers are emulated with the same
 paper-derived speed factors, and the network times are scaled by
 ``TIME_SCALE`` so that the ratio of communication to computation, and with
 it the paper's decision geometry, is the one the reference's calibration
-gives.  Benchmark DBs are cached under ``results/benchdb_torch/<device>``,
-one directory per device name, so a DB timed on one device never prices a
-decision on another.
+gives.  Benchmark DBs are cached under
+``results/benchdb_torch/<device>/<timing>``, one directory per device name
+and timing method, so a DB timed on one device, or in another way, never
+prices a decision on another.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ import os
 import re
 import subprocess
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import (FOUR_G, THREE_G, WIRED, Link, Query,
-                              QueryEngine, Resource, Scission,
-                              TimingProvider, paper_network)
+from repro_torch.core import (FOUR_G, THREE_G, WIRED, AnalyticProvider, Link,
+                              LayerNode, NetworkModel, Query, QueryEngine,
+                              Resource, Scission, TensorSpec, TimingProvider,
+                              benchmark_model, linear_graph, paper_network)
 from repro_torch.core.resources import (CLOUD_VM, EDGE_BOX_1, EDGE_BOX_2,
                                         GTX_1070, RPI4)
 from repro_torch.models import cnn_zoo
@@ -45,10 +48,13 @@ CACHE_ROOT = os.path.join(os.path.dirname(__file__), "..", "results",
 CPU_MOBILENETV2_S = 0.11826
 # The port's TimingProvider time for MobileNetV2 on the card, the same
 # statistic over one run: the median over the five tiers of the sum of the
-# block times over the tier's speed factor (2.9460-3.8407 ms), from the
-# first run of chip_smoke.py's zoo phase that printed it, on an NVIDIA H100
-# 80GB HBM3 at a 700.00 W power limit.
-CARD_MOBILENETV2_S = 0.0032415
+# block times over the tier's speed factor (0.8190-0.8221 ms), from the
+# first run of chip_smoke.py's zoo phase that printed it with block times
+# taken as replays of a CUDA graph (its first DB), on an NVIDIA H100 80GB
+# HBM3 at a 700.00 W power limit.  It replaces 3.2415 ms, the same
+# statistic when blocks were timed as eager calls (2.9460-3.8407 ms over
+# the tiers), which held the host's launch work.
+CARD_MOBILENETV2_S = 0.0008193
 PAPER_TIME_SCALE = 6.0
 TIME_SCALE = PAPER_TIME_SCALE * CARD_MOBILENETV2_S / CPU_MOBILENETV2_S
 
@@ -114,11 +120,61 @@ def scission_for(network_name: str = "4g",
                     provider=TimingProvider(device=dev), runs=5, device=dev)
 
 
+# How TimingProvider times a block on each kind of device: on the card the
+# replays of a CUDA graph of the block (device time), elsewhere the
+# wall-clock of an eager call.  A cached DB is reused only under the same
+# tag, so no DB timed eagerly on the card is read again.
+TIMING = {"cuda": "cudagraph", "cpu": "eager", "meta": "eager"}
+
+
+def fleet_testbed(n_per_tier: int = 9) -> list[Resource]:
+    """A fleet-sized resource set: ``n_per_tier`` heterogeneous resources
+    per tier (slightly different speed factors), for search spaces beyond
+    ``EXHAUSTIVE_LIMIT`` where only the lattice strategies are viable."""
+    res: list[Resource] = []
+    for i in range(n_per_tier):
+        res.append(Resource(f"device{i}", "device", RPI4,
+                            speed_factor=8.0 + i * 0.37))
+        res.append(Resource(f"edge{i}", "edge", EDGE_BOX_1,
+                            speed_factor=1.6 + i * 0.21))
+        res.append(Resource(f"cloud{i}", "cloud", CLOUD_VM,
+                            speed_factor=0.5 + i * 0.13))
+    return res
+
+
+def fleet_engine(n_per_tier: int = 9, n_blocks: int = 32,
+                 network_name: str = "4g",
+                 input_bytes: float = 150e3) -> QueryEngine:
+    """A QueryEngine over a synthetic ``n_blocks``-block model benchmarked
+    (analytically, for speed) on :func:`fleet_testbed`: the fleet-scale
+    query-path substrate.  Each layer widens the first feature of its
+    input to ``d`` features (``torch.tile``, as the reference's
+    ``jnp.tile``), with the reference's seeded widths and FLOPs.  With the
+    defaults the search space is ~350k configs, past the exhaustive
+    limit."""
+    rng = np.random.default_rng(n_blocks)
+    layers = []
+    for i in range(n_blocks):
+        d = int(rng.integers(4, 16)) * 2
+        layers.append(LayerNode(
+            f"l{i}", "dense",
+            apply=lambda x, d=d: torch.tile(x[..., :1], (1, d)),
+            flops=float(rng.integers(1, 100)) * 1e7))
+    graph = linear_graph(f"fleet{n_blocks}",
+                         TensorSpec((1, 8), torch.float32), layers)
+    resources = fleet_testbed(n_per_tier)
+    db = benchmark_model(graph, resources, AnalyticProvider(), runs=1)
+    net = NetworkModel(default=NETWORKS[network_name])
+    return QueryEngine(db, resources, net, source="device0",
+                       input_bytes=input_bytes)
+
+
 def cache_dir(device: torch.device) -> str:
-    """``results/benchdb_torch/<device name>``."""
+    """``results/benchdb_torch/<device name>/<timing method>``."""
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else device.type
-    return os.path.join(CACHE_ROOT, re.sub(r"[^A-Za-z0-9.]+", "_", name))
+    return os.path.join(CACHE_ROOT, re.sub(r"[^A-Za-z0-9.]+", "_", name),
+                        TIMING[device.type])
 
 
 def benchmark_cached(scission: Scission, model_name: str,
@@ -164,11 +220,21 @@ def tier_times(db, resources: list[Resource]) -> dict[str, float]:
             / r.speed_factor for r in resources}
 
 
+def verdict(best) -> str:
+    """``"device-native"`` (every block on ``device``), ``"cloud-native"``
+    (every block on ``cloud`` or ``cloud_gpu``) or ``"split"``."""
+    if best.resources == ("device",):
+        return "device-native"
+    if set(best.resources) <= {"cloud", "cloud_gpu"}:
+        return "cloud-native"
+    return "split"
+
+
 def flips(best_3g, best_4g) -> bool:
     """The paper's headline decision: device-native under 3G, cloud-native
-    (every block on ``cloud`` or ``cloud_gpu``) under 4G."""
-    return (best_3g.resources == ("device",)
-            and set(best_4g.resources) <= {"cloud", "cloud_gpu"})
+    under 4G."""
+    return (verdict(best_3g), verdict(best_4g)) == ("device-native",
+                                                    "cloud-native")
 
 
 def flip_range(db, resources: list[Resource]) -> tuple[float, float]:

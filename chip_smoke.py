@@ -54,11 +54,21 @@ its block times, the three slowest blocks, the query time and the peak
 memory.  ResNet50 is then partitioned as a block DAG and run by
 ``DagPipelineExecutor`` under three assignments (the best, the best staged
 one, and device and cloud in turn, so that branch and skip edges cross);
-MobileNetV2's DB is written, queried under 3G and 4G (each best run stage
-by stage against the whole graph) and without the cloud, and the run fails
-unless its best partition is device-native under 3G and cloud-native under
-4G; the network scale factors over which that flip holds are printed.  The zoo path launches
-none of the hand-written kernels, and the run fails if it does.
+MobileNetV2 is timed into two fresh DBs; the first is written, queried under
+3G and 4G (each best run stage by stage against the whole graph) and
+without the cloud.  The run fails unless each tier's time agrees within
+``ZOO_SPREAD`` between the two DBs, both answer device-native under 3G,
+both find network scale factors at which the decision flips (device-native
+under 3G, cloud-native under 4G) with upper edges within ``ZOO_SPREAD``,
+and both give the same verdict under 4G at the calibration's scale, which
+is printed with the flip's range.  The zoo path launches none of the
+hand-written kernels, and the run fails if it does.
+
+On the card every block time, and every autotuner trial, is the device
+time of replays of the block captured in a CUDA graph (``TimingProvider``,
+``KernelAutotuner``), as the reference times compiled programs; after each
+loop every kernel-bearing block is captured and replayed once more and held
+bit for bit against an eager call of it.
 
 Usage: ``python3 chip_smoke.py [--out DIR]`` from the repo root; ``--out``
 also writes the BenchmarkDBs and autotuner records there.  The last line of
@@ -94,6 +104,10 @@ SLEEP_CYCLES = 2_000_000                     # ~1 ms at the H100's clocks
 # order and cuDNN's algorithms differ (~1e-6); a layout or padding fault
 # gives errors of order 1.
 ZOO_TOL = 1e-4
+# zoo: the most that MobileNetV2's tier times, and the upper edges of its
+# flip ranges, may differ between two fresh DBs of one run (relative to
+# the smaller); decided before the first run with CUDA-graph timing
+ZOO_SPREAD = 0.05
 
 # dense peaks of the card (NVIDIA data sheets): bf16 tensor FLOP/s, bytes/s
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
@@ -304,10 +318,46 @@ def check_partitions(label, graph, x, outputs):
 
 
 def require_launches(launches: dict) -> None:
+    """Each kernel launched on the main path: its wrapper counts a launch
+    when it runs, so the warm-up calls and the CUDA-graph captures of the
+    autotuner and the TimingProvider count, and the timed replays do
+    not."""
     print(f"main-path launches {launches}")
     for k, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"{k} was never launched on the main path")
+
+
+def check_replay(label, graph, x, dev) -> None:
+    """Each kernel-bearing block of ``graph``, captured in a CUDA graph as
+    the TimingProvider captures it, then replayed: its output must equal an
+    eager call of the block on the same input bit for bit, which shows the
+    kernel runs inside the graph the timings replay."""
+    import torch
+    from repro_torch._device import capture
+    from repro_torch.core import fuse_blocks
+    h, checked = x, []
+    for blk in fuse_blocks(graph):
+        fn = blk.make_callable()
+        want = fn(h)
+        kernels = [graph.nodes[i].kernel for i in blk.node_ids
+                   if graph.nodes[i].kernel]
+        if kernels:
+            cuda_graph, got = capture(fn, (h,), dev)
+            cuda_graph.replay()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise RuntimeError(f"{label}: block {blk.index} "
+                                   f"({blk.name}) replayed from its CUDA "
+                                   "graph differs from an eager call")
+            checked.append(f"block {blk.index} ({'+'.join(kernels)})")
+            del got
+            cuda_graph.reset()
+        h = want
+    if not checked:
+        raise RuntimeError(f"{label}: no kernel-bearing block to replay")
+    print(f"{label} replay: {', '.join(checked)} replayed from a CUDA graph "
+          "equal an eager call bit for bit")
 
 
 def prefill_phase(dev, resources, net, out_dir, launches):
@@ -336,6 +386,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     launches.update({"flash_attention": fa_mod.launches,
                      "ssd_scan": ssd_mod.launches})
     require_launches(launches)
+    check_replay("prefill", graph, x, dev)
 
     # -- whole-graph checks ----------------------------------------------
     whole = check_partitions("prefill", graph, x, outputs)
@@ -518,6 +569,7 @@ def decode_phase(dev, resources, net, out_dir, launches):
     outputs = scission_loop("decode", graph, q, resources, net, dev, out_dir)
     launches["decode_attention"] = da_mod.launches
     require_launches({"decode_attention": da_mod.launches})
+    check_replay("decode", graph, q, dev)
 
     # -- whole-graph checks ----------------------------------------------
     whole = check_partitions("decode", graph, q, outputs)
@@ -816,30 +868,37 @@ def zoo_phase(dev, out_dir, peak_fp32, peak_bw) -> None:
     del graph, s, x, whole
     torch.cuda.empty_cache()
 
-    # -- MobileNetV2: the paper's six steps and the 3G/4G flip -------------
+    # -- MobileNetV2: the paper's six steps, timed twice ------------------
     graph = cnn_zoo.build("MobileNetV2", dev, seed=SEED)      # Step 1
-    s3 = ct.scission_for("3g", device=dev)
-    db = s3.benchmark(graph)                                  # Steps 2-3
-    whole_s = ct.tier_times(db, s3.resources)
-    print("zoo MobileNetV2 TimingProvider time, each tier's block times "
-          "over its speed factor: " + ", ".join(
-              f"{k} {v * 1e3:.4f} ms" for k, v in whole_s.items())
-          + f"; median {statistics.median(whole_s.values()) * 1e3:.4f} ms "
-          f"(the calibration took {ct.CARD_MOBILENETV2_S * 1e3:.4f} ms)")
+    runs = []
+    for _ in range(2):                          # two fresh DBs, Steps 2-3
+        s3 = ct.scission_for("3g", device=dev)
+        db = s3.benchmark(graph)
+        s4 = ct.scission_for("4g", device=dev)
+        s4.load(db)
+        best = {net: sc.query("MobileNetV2", Query(top_n=3))   # Step 5
+                for net, sc in (("3g", s3), ("4g", s4))}
+        runs.append(dict(s3=s3, s4=s4, db=db, best=best,
+                         tiers=ct.tier_times(db, s3.resources),
+                         flip=ct.flip_range(db, s3.resources)))
+    for i, r in enumerate(runs, 1):
+        print(f"zoo MobileNetV2 DB {i} TimingProvider time, each tier's "
+              "block times over its speed factor: " + ", ".join(
+                  f"{k} {v * 1e3:.4f} ms" for k, v in r["tiers"].items())
+              + f"; median {statistics.median(r['tiers'].values()) * 1e3:.4f}"
+              f" ms (the calibration took {ct.CARD_MOBILENETV2_S * 1e3:.4f} "
+              "ms)")
+    s3, s4, db = runs[0]["s3"], runs[0]["s4"], runs[0]["db"]
     if out_dir:                                               # Step 4
         os.makedirs(out_dir, exist_ok=True)
         s3.save("MobileNetV2", os.path.join(out_dir,
                                             "chip_smoke_zoo_db.json"))
-    s4 = ct.scission_for("4g", device=dev)
-    s4.load(db)
     x = torch.randn(graph.input_spec.shape,
                     generator=torch.Generator().manual_seed(SEED)).to(dev)
     whole = run_blocks([b.make_callable() for b in fuse_blocks(graph)],
                        x)[-1]
-    best = {}
     for net, sc in (("3g", s3), ("4g", s4)):
-        res = sc.query("MobileNetV2", Query(top_n=3))         # Step 5
-        best[net] = res.best
+        res = runs[0]["best"][net]
         y, _ = PipelineExecutor(graph, res.best, sc.network,  # Step 6
                                 source="device", device=dev).run(x)
         if not torch.equal(y, whole):
@@ -852,17 +911,86 @@ def zoo_phase(dev, out_dir, peak_fp32, peak_bw) -> None:
     private = s4.query("MobileNetV2",
                        Query(top_n=1, exclude=("cloud", "cloud_gpu"))).best
     print(f"zoo MobileNetV2 [4g, privacy: no cloud] {private.describe()}")
-
-    lo, hi = ct.flip_range(db, s3.resources)
-    print(f"zoo MobileNetV2 flip (device-native under 3G, cloud-native "
-          f"under 4G) holds for network scale factors {lo:.4g}-{hi:.4g} "
-          "on top of TIME_SCALE (1 = the calibration)")
     if {"cloud", "cloud_gpu"} & set(private.resources):
         raise RuntimeError("the privacy query placed a block on the cloud")
-    if not ct.flips(best["3g"], best["4g"]):
-        raise RuntimeError(
-            "MobileNetV2's decision does not flip: best under 3G "
-            f"{best['3g'].describe()}, under 4G {best['4g'].describe()}")
+
+    # the checks: reproducible block times, the 3G decision, a flip over a
+    # range of network scale factors, and one 4G verdict from both DBs
+    spread = {k: abs(runs[0]["tiers"][k] - runs[1]["tiers"][k])
+              / min(runs[0]["tiers"][k], runs[1]["tiers"][k])
+              for k in runs[0]["tiers"]}
+    print("zoo MobileNetV2 tier times, DB 1 against DB 2: " + ", ".join(
+        f"{k} {v:.2%}" for k, v in spread.items())
+        + f" apart (limit {ZOO_SPREAD:.0%})")
+    if max(spread.values()) > ZOO_SPREAD:
+        raise RuntimeError(f"MobileNetV2's tier times differ by more than "
+                           f"{ZOO_SPREAD:.0%} between two fresh DBs: "
+                           f"{spread}")
+    for i, r in enumerate(runs, 1):
+        lo, hi = r["flip"]
+        b3, b4 = r["best"]["3g"].best, r["best"]["4g"].best
+        print(f"zoo MobileNetV2 DB {i}: 3G {ct.verdict(b3)} "
+              f"({b3.describe()}); 4G at scale 1 {ct.verdict(b4)} "
+              f"({b4.describe()}); the flip (device-native under 3G, "
+              f"cloud-native under 4G) holds for network scale factors "
+              f"{lo:.4g}-{hi:.4g} on top of TIME_SCALE (1 = the "
+              "calibration)")
+        if ct.verdict(b3) != "device-native":
+            raise RuntimeError(f"MobileNetV2 DB {i}: the best partition "
+                               f"under 3G is not device-native: "
+                               f"{b3.describe()}")
+        if math.isnan(lo):
+            raise RuntimeError(f"MobileNetV2 DB {i}: the decision flips at "
+                               "no network scale factor")
+    his = [r["flip"][1] for r in runs]
+    if abs(his[0] - his[1]) / min(his) > ZOO_SPREAD:
+        raise RuntimeError(f"the flip ranges' upper edges {his} differ by "
+                           f"more than {ZOO_SPREAD:.0%}")
+    verdicts = [ct.verdict(r["best"]["4g"].best) for r in runs]
+    if verdicts[0] != verdicts[1]:
+        raise RuntimeError(f"the 4G verdict at scale 1 differs between two "
+                           f"fresh DBs: {verdicts}")
+
+
+def paper_phase(dev) -> None:
+    """The paper's benchmarks on the card, through the port's harness
+    modules: ``bench_partitions_torch``'s smoke modes (Figs 6-8's
+    decisions, predicted against simulated throughput, the Pareto frontier
+    against the exhaustive oracle, binding constraints, the fleet-sized
+    frontier and incremental re-plans), ``bench_serving_torch``'s smoke
+    (Poisson and bursty traces through the router at the frontier's
+    highest-throughput point, goodput within 30% of predicted, a live
+    re-plan) and ``bench_query_torch`` in quick mode (the worst query
+    under 50 ms).  Their DBs are timed afresh on ``dev`` into a cache of
+    this run's own; any gate failure raises."""
+    import shutil
+    from benchmarks import bench_partitions_torch as bp
+    from benchmarks import bench_query_torch as bq
+    from benchmarks import bench_serving_torch as bs
+    from benchmarks import common_torch as ct
+
+    t0 = time.perf_counter()
+    ct.CACHE_ROOT = str(ROOT / "results" / "chip_smoke_benchdb")
+    shutil.rmtree(ct.CACHE_ROOT, ignore_errors=True)
+    rows = bp.smoke(device=dev) + bp.smoke_frontier(device=dev)
+    serving = bs.smoke(device=dev)
+    rows += bq.run(quick=True, device=dev)
+    failures = bp.failures() + bs.failures() + bq.run.failures
+    for name, us, derived in rows:
+        print(f"paper {name},{us:.1f},{derived}")
+    print(f"paper serving: point batch {serving['point']['batch_size']} "
+          f"replicas {serving['point']['replicas']}, predicted "
+          f"{serving['point']['predicted_rps']} rps; poisson goodput "
+          f"{serving['poisson']['goodput_rps']:.4g} rps (rel err "
+          f"{serving['poisson']['rel_err']:.2%}, limit "
+          f"{bs.GOODPUT_TOLERANCE:.0%}); bursty shed "
+          f"{serving['bursty']['shed']}; replan swaps "
+          f"{serving['replan']['swaps']}")
+    print(f"paper phase: {time.perf_counter() - t0:.1f} s of wall time; "
+          f"gate failures {failures}")
+    if failures:
+        raise RuntimeError(f"the paper's benchmarks failed their gates: "
+                           f"{failures}")
 
 
 def main() -> int:
@@ -932,6 +1060,17 @@ def main() -> int:
     print(f"zoo-path launches {zoo_launches}")
     if any(zoo_launches.values()):
         raise RuntimeError("the zoo path launched a hand-written kernel")
+    torch.cuda.empty_cache()
+
+    # the paper's benchmarks, which run the zoo too: no hand-written kernel
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    paper_phase(dev)
+    paper_launches = {"flash_attention": fa_mod.launches,
+                      "ssd_scan": ssd_mod.launches,
+                      "decode_attention": da_mod.launches}
+    print(f"paper-path launches {paper_launches}")
+    if any(paper_launches.values()):
+        raise RuntimeError("the paper path launched a hand-written kernel")
 
     report = []
     for r in kernels:

@@ -7,8 +7,10 @@ Benchmarks the model on the emulated device/edge/cloud testbed with the card
 playing the cloud box (Steps 1-3, cached per device under
 ``results/benchdb_torch``), then queries the optimal partition under 3G and
 4G (Steps 4-6) — the paper's headline result is that the optimum flips from
-device-native under 3G to cloud-native under 4G — and the best partition
-that keeps the data off the cloud.
+device-native under 3G to cloud-native under 4G; on the card, at the
+calibration of ``benchmarks/common_torch.py``, 4G picks a split partition
+instead (PERF.md §5) — and the best partition that keeps the data off the
+cloud.
 """
 
 import sys

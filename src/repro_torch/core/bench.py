@@ -14,8 +14,9 @@ extrapolated).
 
 Three providers implement the paper's "empirical, not estimated" principle:
 
-* :class:`TimingProvider` — wall-clock of the block on one device (the
-  card, by default), scaled by the resource's ``speed_factor``.  This is the
+* :class:`TimingProvider` — the block's time on one device (the card, by
+  default: replays of a captured CUDA graph), scaled by the resource's
+  ``speed_factor``.  This is the
   **paper-faithful** path (the measuring device plays the 'Cloud' box; the
   paper itself emulates the other tiers' network conditions the same way).
 * :class:`CompiledCostProvider` — the FLOPs and bytes the block's operators
@@ -41,7 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-from .._device import resolve_device, synchronize
+from .._device import replay_seconds, resolve_device, synchronize
 from ..kernels.substrate import KernelAutotuner
 from .graph import Block, LayerGraph, TensorSpec, fuse_blocks
 from .resources import Resource
@@ -286,13 +287,17 @@ def _batched_input(spec: TensorSpec, batch: int) -> TensorSpec:
 
 
 class TimingProvider:
-    """Wall-clock measurement of the block's sub-model on ``device``.
+    """Measured time of the block's sub-model on ``device``.
 
     Faithful to the paper: ``runs`` runs, averaged, after one warm-up run,
-    on real inputs of the block's input shape.  The device is synchronised
-    before each clock read, so a sample is the time the work took, not the
-    time to enqueue it.  Batched measurements feed a batch-``b`` input
-    through the same sub-model, so economies of scale are captured
+    on real inputs of the block's input shape.  On the card, as the
+    reference times ``jax.jit`` of the block with one dispatch per sample,
+    one call is captured in a CUDA graph after the warm-up and each sample
+    is one replay between CUDA events (``_device.replay_seconds``): the
+    block's device time, without the host's per-operator launch work.  A
+    block that cannot be captured raises.  On the CPU a sample is the
+    wall-clock of one eager call.  Batched measurements feed a batch-``b``
+    input through the same sub-model, so economies of scale are captured
     empirically.
 
     When constructed with a :class:`KernelAutotuner`, kernel-bearing layers
@@ -319,12 +324,15 @@ class TimingProvider:
                                   device=self.device))
         fn(*xs)  # warm-up
         synchronize(self.device)
-        samples = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            fn(*xs)
-            synchronize(self.device)
-            samples.append(time.perf_counter() - t0)
+        if self.device.type == "cuda":
+            samples = replay_seconds(fn, tuple(xs), runs, self.device)
+        else:
+            samples = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn(*xs)
+                synchronize(self.device)
+                samples.append(time.perf_counter() - t0)
         mean = statistics.fmean(samples) * resource.speed_factor
         std = (statistics.pstdev(samples) if len(samples) > 1 else 0.0)
         return mean, std * resource.speed_factor, 0.0, 0.0

@@ -31,7 +31,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from .._device import resolve_device, synchronize
+from .._device import replay_seconds, resolve_device, synchronize
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -67,6 +67,14 @@ DEFAULT_CANDIDATES: dict[str, list[dict[str, int]]] = {
     "decode_attention": [{"block_k": bk} for bk in (128, 256, 512)],
     "ssd_scan": [{"chunk": c} for c in (32, 64, 128, 256)],
 }
+
+# A candidate displaces the default block sizes only when it is faster by
+# more than this fraction.  Two fresh DBs of MobileNetV2 timed as CUDA-graph
+# replays lie up to 1% apart (H100 80GB HBM3, 700.00 W, chip_smoke.py),
+# while flash attention's default and its nearest candidate at zamba2's
+# widths lie 0.1% apart: without the margin the winner would change from
+# run to run on noise alone.
+TOLERANCE = 0.01
 
 DEFAULT_PARAMS: dict[str, dict[str, int]] = {
     "flash_attention": {"block_q": 128, "block_k": 128},
@@ -136,12 +144,16 @@ class KernelAutotuner:
     """Sweeps block-size candidates and caches per-(kernel, shape, resource)
     winners.
 
-    ``tune`` measures the wall-clock of a candidate callable (min over
-    ``runs`` after a warm-up), synchronising the card before each clock
-    read — the same measurement discipline as ``TimingProvider``.  A custom
-    ``measure`` hook replaces wall-clock timing (unit tests).  On the card,
+    ``tune`` measures a candidate callable (min over ``runs`` after a
+    warm-up) as ``TimingProvider`` measures a block: on the card each
+    sample is one replay of the candidate captured in a CUDA graph, timed
+    by CUDA events, as the reference times ``jax.jit`` candidates; on the
+    CPU the wall-clock of one eager call.  A custom
+    ``measure`` hook replaces the timing (unit tests).  On the card,
     candidates over the per-block shared-memory limit are pruned before any
     launch; ``smem_limit`` overrides the limit read from the card.
+    The default block sizes win unless a candidate is faster by more than
+    ``TOLERANCE`` (the reference takes the fastest outright).
     """
 
     def __init__(self, candidates: dict[str, list[dict[str, int]]] | None = None,
@@ -158,7 +170,7 @@ class KernelAutotuner:
         self.smem_limit = (smem_limit if smem_limit is not None
                            else card_smem_limit(self.device))
         self.records: dict[tuple[str, str, str], TuneRecord] = {}
-        # Measurements are wall-clock on one device and independent of the
+        # Measurements are taken on one device and are independent of the
         # emulated resource (speed factors scale uniformly), so trial tables
         # are shared across resources; each resource still gets its record.
         self._trials: dict[tuple[str, str], dict[str, float]] = {}
@@ -169,6 +181,9 @@ class KernelAutotuner:
             return self.measure(fn, args)
         fn(*args)                       # warm-up
         synchronize(self.device)
+        if self.device.type == "cuda":
+            return min(replay_seconds(fn, args, max(1, self.runs),
+                                      self.device))
         best = float("inf")
         for _ in range(max(1, self.runs)):
             t0 = time.perf_counter()
@@ -237,6 +252,9 @@ class KernelAutotuner:
         admissible = {k: t for k, t in trials.items() if k in kept_keys}
         best_key = min(admissible, key=admissible.get)
         dkey = json.dumps(defaults, sort_keys=True)
+        if dkey in admissible and \
+                admissible[dkey] <= admissible[best_key] * (1.0 + TOLERANCE):
+            best_key = dkey
         rec = TuneRecord(kernel=kernel, shape_key=shape_key, resource=resource,
                          params=json.loads(best_key),
                          time_s=admissible[best_key],

@@ -1,5 +1,8 @@
 from .pipeline import (BlockTiming, DagPipelineExecutor, PipelineExecutor,
                        Stage, StageTiming)
+from .ft import (HeartbeatRegistry, ShardAssignment, StragglerDetector,
+                 TrainSupervisor)
 
 __all__ = ["BlockTiming", "DagPipelineExecutor", "PipelineExecutor", "Stage",
-           "StageTiming"]
+           "StageTiming", "HeartbeatRegistry", "ShardAssignment",
+           "StragglerDetector", "TrainSupervisor"]

@@ -547,3 +547,99 @@ def test_zoo_block_launches_no_kernel_and_copies_no_layout(cuda):
     names = {e.name for e in prof.events()}
     assert not names & {"aten::contiguous", "aten::clone", "aten::copy_"}, \
         sorted(names)
+
+
+# -- timing on the card: replays of a block captured in a CUDA graph --------
+def _capture_case(kind, device):
+    """A graph and the index of a block of it: a zoo block, or the block of
+    one hand-written kernel in the prefill or decode graph at small widths."""
+    from repro_torch.kernel_graph import decode_graph, kernel_graph
+    gen = torch.Generator().manual_seed(0)
+    if kind == "zoo":
+        return cnn_zoo.build("MobileNetV2", device), 3
+    if kind in ("flash", "ssd"):
+        weights = {n: (torch.randn(64, 64, generator=gen) * 0.1)
+                   .to(device, torch.bfloat16) for n in ("mlp0", "mlp1")}
+        g = kernel_graph(TensorSpec((1, 256, 4, 64), torch.bfloat16), weights,
+                         state_dim=16, device=device)
+        kernel = "flash_attention" if kind == "flash" else "ssd_scan"
+    else:
+        weights = {n: (torch.randn(128, 128, generator=gen) * 0.1)
+                   .to(device, torch.bfloat16) for n in ("mlp0", "mlp1")}
+        g = decode_graph(TensorSpec((4, 8, 128), torch.bfloat16), weights,
+                         cache_len=512, kv_heads=2, head_dim=128,
+                         device=device)
+        kernel = "decode_attention"
+    blk = next(b for b in fuse_blocks(g)
+               if any(g.nodes[i].kernel == kernel for i in b.node_ids))
+    return g, blk.index
+
+
+@pytest.mark.parametrize("kind", ["zoo", "flash", "ssd", "decode"])
+def test_captured_block_replays_like_an_eager_call(cuda, kind):
+    """The capture TimingProvider times: replaying it gives the eager call's
+    output bit for bit, and the kernel's launch is counted at capture."""
+    from repro_torch._device import capture
+    g, index = _capture_case(kind, cuda)
+    blk = fuse_blocks(g)[index]
+    fn = blk.make_callable()
+    x = _randn(np.random.default_rng(2), blk.in_spec.shape,
+               blk.in_spec.dtype, cuda)
+    want = fn(x)
+    counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    graph, got = capture(fn, (x,), cuda)
+    after = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    assert sum(after) - sum(counts) == (0 if kind == "zoo" else 1)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (fa_mod.launches, ssd_mod.launches, da_mod.launches) == after
+    assert torch.equal(got, want)
+    graph.reset()
+
+
+def test_timing_provider_gives_reproducible_mobilenetv2_dbs(cuda):
+    """Two fresh DBs of MobileNetV2 on the five tiers: each tier's time (its
+    block times over its speed factor) agrees within 5%, the bound of
+    chip_smoke.py's zoo phase."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks import common_torch as ct
+    graph = cnn_zoo.build("MobileNetV2", cuda)
+    tiers = []
+    for _ in range(2):
+        s = ct.scission_for("3g", device=cuda)
+        tiers.append(ct.tier_times(s.benchmark(graph), s.resources))
+    for name, t in tiers[0].items():
+        assert abs(t - tiers[1][name]) <= 0.05 * min(t, tiers[1][name]), \
+            tiers
+
+
+def test_block_that_cannot_be_captured_raises(cuda):
+    """A block that syncs with the host cannot be captured: the
+    TimingProvider and the autotuner raise, and time nothing eagerly."""
+    from repro_torch.core import (LayerNode, Resource, TimingProvider,
+                                  linear_graph)
+    from repro_torch.core.resources import CLOUD_VM
+    from repro_torch.kernels import KernelAutotuner
+    calls = []
+
+    def host_sync(x):
+        calls.append(1)
+        if x.is_meta:                     # shape tracing
+            return x
+        return x * x.sum().item()
+
+    g = linear_graph("sync", TensorSpec((4, 8), torch.float32),
+                     [LayerNode("sync", "dense", apply=host_sync)])
+    blk = fuse_blocks(g)[-1]
+    res = Resource("cloud", "cloud", CLOUD_VM)
+    calls.clear()
+    with pytest.raises(RuntimeError):
+        TimingProvider(device=cuda).measure(blk, res, runs=3)
+    assert len(calls) == 2               # the warm-up and the capture
+    x = torch.ones(4, 8, device=cuda)
+    with pytest.raises(RuntimeError):
+        KernelAutotuner(device=cuda)._time_candidate(host_sync, (x,))
+    assert torch.equal(x + 1, torch.full((4, 8), 2.0, device=cuda))

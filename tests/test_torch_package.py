@@ -55,7 +55,11 @@ def test_port_import_leaves_jax_unloaded():
             " repro_torch.runtime, repro_torch.convert,"
             " repro_torch.kernel_graph, repro_torch.analysis.plan_lint,"
             " repro_torch.models.cnn_zoo, repro_torch.runtime.elastic,"
-            " repro_torch.analysis.cost_lint, repro_torch.analysis.graph_lint;"
+            " repro_torch.analysis.cost_lint, repro_torch.analysis.graph_lint,"
+            " repro_torch.serving, repro_torch.serving.requests,"
+            " repro_torch.serving.queues, repro_torch.serving.metrics,"
+            " repro_torch.serving.sim, repro_torch.serving.router,"
+            " repro_torch.runtime.ft;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')];"
             " print(bad); sys.exit(1 if bad else 0)")
