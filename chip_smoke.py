@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three main paths.  The first two are Scission's loop
+Drives the port's main paths.  The first two are Scission's loop
 over a kernel-bearing graph, each with seeded random weights in bf16:
 
 * prefill: flash attention -> dense -> SSD scan -> dense at zamba2-2.7b
@@ -63,6 +63,31 @@ under 3G, cloud-native under 4G) with upper edges within ``ZOO_SPREAD``,
 and both give the same verdict under 4G at the calibration's scale, which
 is printed with the flip's range.  The zoo path launches none of the
 hand-written kernels, and the run fails if it does.
+
+The fourth path, ``lm_phase``, runs the LM models and the serving engine
+at full size with bf16 weights drawn on the card: granite-8b (36 layers,
+d_model 4096, 32 query heads over 8 kv heads of head_dim 128) through
+Scission's loop over ``lm_to_graph`` (one sequence of 2048 tokens; the
+partitions equal the whole graph bit for bit; each group block replayed
+from its CUDA graph equals an eager call) and through the bucketed engine
+(width 8, 16 requests of 64-1024 tokens, 32 new each); zamba2-2.7b (54
+Mamba-2 layers, a shared attention block of 32 heads of head_dim 80 every
+6) through the exact engine (width 4, 8 requests of 128, 256 or 512
+tokens, 16 new); and the reduced gemma2 of
+``examples/partition_and_serve_torch.py``, whose local layers decode with
+a window.  Each is driven with the launch counts set to 0 and must launch
+every kernel it runs.  Each engine's requests are then held by a
+teacher-forced check: prompt and generated tokens through ``forward`` with
+the kernels and with their plain versions (the module attributes the
+layers call, patched), logits within ``LM_TOL`` (relative norm), and every
+engine token equal to the plain argmax wherever the plain top-2 margin
+exceeds ``LM_MARGIN`` times the largest logit difference.  Four more
+decode_attention rows follow, under the sizes the paths adopted: one at
+each engine's widths and the lengths of its heaviest decode step, the one
+that read the most cache rows (granite-8b; zamba2's head_dim 80; the
+example's head_dim 32 with its window of 16), and one at gemma2-9b's full
+widths with its window of 4096, which no path runs and whose launches are
+the example's, labelled so.
 
 On the card every block time, and every autotuner trial, is the device
 time of replays of the block captured in a CUDA graph (``TimingProvider``,
@@ -253,7 +278,7 @@ def moved_bytes(*tensors) -> float:
 def scission_loop(label, graph, x, resources, net, dev, out_dir):
     """Autotune -> BenchmarkDB -> query -> partitioned runs of ``graph`` on
     input ``x``; prints what each step chose and returns the partitioned
-    outputs as {label: (config, y, timings)}."""
+    outputs as {label: (config, y, timings)} and the DB."""
     from repro_torch.core import (Query, QueryEngine, TimingProvider,
                                   benchmark_model)
     from repro_torch.kernels import KernelAutotuner
@@ -300,7 +325,7 @@ def scission_loop(label, graph, x, resources, net, dev, out_dir):
         Path(out_dir, f"chip_smoke_{label}_db.json").write_text(db.to_json())
         Path(out_dir, f"chip_smoke_{label}_tuner.json").write_text(
             tuner.to_json())
-    return outputs
+    return outputs, db
 
 
 def check_partitions(label, graph, x, outputs):
@@ -328,11 +353,12 @@ def require_launches(launches: dict) -> None:
             raise RuntimeError(f"{k} was never launched on the main path")
 
 
-def check_replay(label, graph, x, dev) -> None:
+def check_replay(label, graph, x, dev, kernel_of=None) -> None:
     """Each kernel-bearing block of ``graph``, captured in a CUDA graph as
     the TimingProvider captures it, then replayed: its output must equal an
     eager call of the block on the same input bit for bit, which shows the
-    kernel runs inside the graph the timings replay."""
+    kernel runs inside the graph the timings replay.  ``kernel_of(node)``
+    names the kernel a node launches (default: its tunable ``kernel``)."""
     import torch
     from repro_torch._device import capture
     from repro_torch.core import fuse_blocks
@@ -340,8 +366,9 @@ def check_replay(label, graph, x, dev) -> None:
     for blk in fuse_blocks(graph):
         fn = blk.make_callable()
         want = fn(h)
-        kernels = [graph.nodes[i].kernel for i in blk.node_ids
-                   if graph.nodes[i].kernel]
+        kernels = [k for i in blk.node_ids
+                   if (k := (kernel_of or (lambda n: n.kernel))(
+                       graph.nodes[i]))]
         if kernels:
             cuda_graph, got = capture(fn, (h,), dev)
             cuda_graph.replay()
@@ -361,7 +388,8 @@ def check_replay(label, graph, x, dev) -> None:
 
 
 def prefill_phase(dev, resources, net, out_dir, launches):
-    """The prefill path at zamba2-2.7b widths; returns its kernel rows."""
+    """The prefill path at zamba2-2.7b widths; returns its kernel rows and
+    its BenchmarkDB."""
     import torch
     import torch.nn.functional as F
 
@@ -381,8 +409,8 @@ def prefill_phase(dev, resources, net, out_dir, launches):
 
     fa_mod.launches = 0
     ssd_mod.launches = 0
-    outputs = scission_loop("prefill", graph, x, resources, net, dev,
-                            out_dir)
+    outputs, db = scission_loop("prefill", graph, x, resources, net, dev,
+                                out_dir)
     launches.update({"flash_attention": fa_mod.launches,
                      "ssd_scan": ssd_mod.launches})
     require_launches(launches)
@@ -533,7 +561,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
         err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
         host_ms=host, plain_ms=plain_ms, flops=flops, nbytes=nbytes,
         lib_ms=None))
-    return kernels
+    return kernels, db
 
 
 def decode_phase(dev, resources, net, out_dir, launches):
@@ -566,7 +594,8 @@ def decode_phase(dev, resources, net, out_dir, launches):
                          caches=caches, device=dev)
 
     da_mod.launches = 0
-    outputs = scission_loop("decode", graph, q, resources, net, dev, out_dir)
+    outputs, _ = scission_loop("decode", graph, q, resources, net, dev,
+                               out_dir)
     launches["decode_attention"] = da_mod.launches
     require_launches({"decode_attention": da_mod.launches})
     check_replay("decode", graph, q, dev)
@@ -675,6 +704,514 @@ def decode_phase(dev, resources, net, out_dir, launches):
         tol=f"tol {DEC_ATOL} x RMS abs + {DEC_RTOL} rel, norm {DEC_NORM}",
         ms=ms, call_ms=call_ms, host_ms=host, plain_ms=plain_ms,
         flops=flops, nbytes=nbytes, lib_ms=lib_ms)]
+
+
+# -- the LM models and the serving engine -----------------------------------
+# granite-8b: lm_to_graph's Scission loop at one sequence of LM_GRAPH_SEQ
+# tokens, then the engine (bucketed admission) over LM_REQUESTS seeded
+# requests; zamba2-2.7b: the engine (exact admission) alone.
+LM_GRAPH_SEQ = 2048
+GRANITE_ENGINE = dict(width=8, max_len=2048, requests=16, prompt=(64, 1024),
+                      new=32)
+ZAMBA_ENGINE = dict(width=4, max_len=1024, requests=8,
+                    prompts=(128, 256, 512), new=16)
+# teacher-forced check, decided before the first run on the card: the
+# kernels' logits against the plain versions' by relative norm error
+# (tests/test_kernels.py:18-19), and each engine token equal to the plain
+# argmax wherever the plain top-2 margin exceeds LM_MARGIN x the request's
+# largest logit difference between the two runs
+LM_TOL = 3e-2
+LM_MARGIN = 2.0
+
+
+class StepClock:
+    """The device time of each call of a wrapped step: CUDA events around
+    the call, so the time between them includes any gap in which the
+    device waited for the host's launches."""
+
+    def __init__(self):
+        self.events = []
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+        return timed
+
+    def ms(self) -> list[float]:
+        import torch
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _plain_kernels():
+    """The model's kernel entry points replaced by their plain versions
+    (``kernels/ref.py``), as a context manager: the module attributes the
+    layers call are patched, and restored on exit."""
+    import contextlib
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+
+    @contextlib.contextmanager
+    def patched():
+        saved = (L.flash_attention, L.decode_attention, ssm.ssd_scan)
+        L.flash_attention = lambda q, k, v, *, causal=True, window=None, \
+            softcap=None, block_q=None, block_k=None: \
+            ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+        L.decode_attention = lambda q, k, v, lengths, *, softcap=None, \
+            window=None, block_k=None: ref.decode_attention_ref(
+                q, k, v, lengths, softcap=softcap, window=window)
+        ssm.ssd_scan = lambda x, la, b, c, *, chunk: ref.ssd_ref(
+            x, la, b, c, chunk=chunk)
+        try:
+            yield
+        finally:
+            L.flash_attention, L.decode_attention, ssm.ssd_scan = saved
+
+    return patched()
+
+
+def teacher_forced(label, model, params, done, pad_to: int = 1) -> dict:
+    """Each finished request's prompt and generated tokens (the last one
+    dropped) through ``forward`` twice, with the kernels and with their
+    plain versions; ``pad_to`` pads the sequence with zeros to a multiple
+    (Mamba-2's chunk), which causal layers never show the real positions.
+    Raises unless the logits agree within ``LM_TOL`` (relative norm, every
+    position) and the engine's tokens equal the plain argmax at every held
+    position; returns the counts and worst errors."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+
+    def logits(toks):
+        with torch.no_grad():
+            hidden, _ = model.forward(params, toks)
+            return L.unembed(params["embed"], hidden,
+                             softcap=model.cfg.final_softcap)[0]
+
+    held = positions = agree = 0
+    worst_rel = worst_diff = 0.0
+    for r in sorted(done, key=lambda r: r.rid):
+        seq = np.concatenate([r.prompt, r.tokens[:-1]]).astype(np.int32)
+        n = len(seq)
+        padded = np.zeros(-(-n // pad_to) * pad_to, np.int32)
+        padded[:n] = seq
+        toks = torch.as_tensor(padded, device=model.device)[None]
+        got = logits(toks)[:n]
+        with _plain_kernels():
+            want = logits(toks)[:n]
+        rel = (torch.linalg.vector_norm(got - want)
+               / torch.linalg.vector_norm(want)).item()
+        if not rel <= LM_TOL:
+            raise RuntimeError(f"{label} request {r.rid}: logits' relative "
+                               f"norm error {rel:.4g} over {LM_TOL}")
+        gen = slice(len(r.prompt) - 1, n)          # predicts r.tokens
+        diff = (got[gen] - want[gen]).abs().max().item()
+        top2 = want[gen].topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        plain_tok = want[gen].argmax(dim=-1).cpu().numpy()
+        engine_tok = np.asarray(r.tokens)
+        hold = margin > LM_MARGIN * diff
+        bad = hold & (engine_tok != plain_tok)
+        if bad.any():
+            raise RuntimeError(
+                f"{label} request {r.rid}: engine tokens differ from the "
+                f"plain argmax at held positions {np.nonzero(bad)[0]} "
+                f"(margins {margin[bad]}, largest logit difference {diff})")
+        held += int(hold.sum())
+        positions += len(hold)
+        agree += int((engine_tok == plain_tok).sum())
+        worst_rel, worst_diff = max(worst_rel, rel), max(worst_diff, diff)
+    if held == 0:
+        raise RuntimeError(f"{label}: the teacher-forced check held no "
+                           "position")
+    print(f"{label} teacher-forced: {len(done)} requests, logits' relative "
+          f"norm error up to {worst_rel:.4g} (bound {LM_TOL}), largest logit "
+          f"difference {worst_diff:.4g}; tokens held at {held} of "
+          f"{positions} generated positions (plain top-2 margin > "
+          f"{LM_MARGIN} x the difference), all equal; engine tokens equal "
+          f"the plain argmax at {agree} of {positions} (not checked)")
+    return dict(held=held, positions=positions, rel=worst_rel,
+                diff=worst_diff, agree=agree)
+
+
+def decode_lengths():
+    """A context manager that records, for each decode step any
+    ``ServingEngine`` takes inside it, the ``lengths`` ``decode_attention``
+    is given: each slot's cache length plus one (1 for a free slot), read
+    from the host's pool before the step; it yields the list of steps."""
+    import contextlib
+
+    from repro_torch.serving import engine as engine_mod
+
+    @contextlib.contextmanager
+    def recording():
+        steps = []
+        real = engine_mod.ServingEngine._decode_step
+
+        def step(self, finished):
+            steps.append([int(n) + 1 for n in self.pool.lengths])
+            return real(self, finished)
+        engine_mod.ServingEngine._decode_step = step
+        try:
+            yield steps
+        finally:
+            engine_mod.ServingEngine._decode_step = real
+
+    return recording()
+
+
+def heaviest(steps: list) -> list[int]:
+    """The decode step that read the most cache rows (the largest sum of
+    lengths; the first of equals)."""
+    return max(steps, key=sum)
+
+
+def serve(label, model, params, requests, width, max_len) -> dict:
+    """``requests`` through a ``ServingEngine``: warm-up, then one timed
+    ``run``.  Prints and returns requests, tokens, wall time, tok/s, TTFT
+    p50/p99, the median prefill and decode step (``StepClock``), the peak
+    memory of the run and the lengths of its heaviest decode step."""
+    import time
+
+    import numpy as np
+    import torch
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, width=width, max_len=max_len)
+    for r in requests:
+        eng.submit(r)
+    eng.warmup()
+    prefill, decode = StepClock(), StepClock()
+    eng._prefill = prefill.wrap(eng._prefill)
+    eng._decode = decode.wrap(eng._decode)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    for r in requests:           # each request's clock starts with the run
+        r.submitted_at = start
+    with decode_lengths() as steps:
+        done = eng.run()
+    torch.cuda.synchronize()
+    stats = eng.stats
+    ttft = [r.ttft_s * 1e3 for r in done]
+    out = dict(requests=stats.requests, tokens=stats.tokens,
+               wall_s=stats.wall_s, tok_s=stats.tokens_per_s,
+               ttft_p50_ms=float(np.percentile(ttft, 50)),
+               ttft_p99_ms=float(np.percentile(ttft, 99)),
+               prefill_ms=statistics.median(prefill.ms()),
+               prefills=len(prefill.events),
+               decode_ms=statistics.median(decode.ms()),
+               decode_steps=len(decode.events),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               path="exact" if eng.prompt_buckets is None else "bucketed",
+               lengths=heaviest(steps))
+    if out["requests"] != len(requests):
+        raise RuntimeError(f"{label}: served {out['requests']} of "
+                           f"{len(requests)} requests")
+    print(f"{label} engine ({out['path']} admission, width {width}, max_len "
+          f"{max_len}): {out['requests']} requests, {out['tokens']} tokens "
+          f"in {out['wall_s']:.3f} s, {out['tok_s']:.1f} tok/s; TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, p99 {out['ttft_p99_ms']:.1f} ms; "
+          f"median prefill step {out['prefill_ms']:.3f} ms over "
+          f"{out['prefills']}, median decode step {out['decode_ms']:.3f} ms "
+          f"over {out['decode_steps']} (CUDA events); peak memory "
+          f"{out['peak_gb']:.2f} GB")
+    return out | {"done": done}
+
+
+def lm_model(name, dev, cfg=None):
+    """``name``'s model at its full published size (``cfg`` overrides) with
+    bf16 weights drawn on ``dev`` from seed ``SEED``."""
+    import time
+
+    import torch
+    from repro_torch.launch.steps import count_params
+    from repro_torch.models import build_model, get_config
+
+    cfg = cfg or get_config(name)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"lm {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of head_dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab}; "
+          f"{count_params(cfg) / 1e9:.3f}e9 bf16 parameters drawn on the card "
+          f"in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+def lm_granite(dev, resources, net, out_dir, cfg=None) -> dict:
+    """granite-8b: lm_to_graph's Scission loop, then the engine; returns
+    the path's launches, numbers and the lengths of its heaviest decode
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.graph_adapter import lm_to_graph
+    from repro_torch.serving import Request
+
+    label = "lm granite-8b"
+    model, params = lm_model("granite-8b", dev, cfg)
+    vocab = model.cfg.vocab
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    graph = lm_to_graph(model, params, batch=1, seq_len=LM_GRAPH_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    tokens = torch.randint(0, vocab, (1, LM_GRAPH_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    print(f"{label} graph: {graph.n_layers} nodes, "
+          f"{len(graph.partition_points())} partition points, sequence "
+          f"{LM_GRAPH_SEQ}")
+    outputs, db = scission_loop("lm-granite", graph, tokens, resources, net,
+                                dev, out_dir)
+    require_launches({"flash_attention": fa_mod.launches})
+    check_replay(label, graph, tokens, dev,
+                 kernel_of=lambda n: "flash_attention"
+                 if n.kind == "block" else None)
+    whole = check_partitions(label, graph, tokens, outputs)
+    print(f"{label} graph output {tuple(whole.shape)} {whole.dtype}: equal "
+          f"across {list(outputs)} partitions and the whole-graph run; "
+          f"finite {bool(torch.isfinite(whole).all())}")
+    if not torch.isfinite(whole).all():
+        raise RuntimeError(f"{label}: the graph's logits are not finite")
+    blocks = {res.name: [r.mean_time_s * 1e3 for r in db.records[res.name]]
+              for res in resources}
+    del outputs, whole
+
+    e = GRANITE_ENGINE
+    rng = np.random.default_rng(SEED)
+    requests = [Request(rid=i, prompt=rng.integers(
+        0, vocab, int(rng.integers(e["prompt"][0], e["prompt"][1] + 1))),
+        max_new_tokens=e["new"]) for i in range(e["requests"])]
+    run = serve(label, model, params, requests, e["width"], e["max_len"])
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    require_launches(launches)
+    done = run.pop("done")
+    check = teacher_forced(label, model, params, done)
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, blocks=blocks, engine=run, check=check,
+                lengths=run.pop("lengths"))
+
+
+def lm_zamba(dev, cfg=None) -> dict:
+    """zamba2-2.7b: the engine alone (exact admission); returns the path's
+    launches, numbers and the lengths of its heaviest decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.serving import Request
+
+    label = "lm zamba2-2.7b"
+    model, params = lm_model("zamba2-2.7b", dev, cfg)
+    e = ZAMBA_ENGINE
+    rng = np.random.default_rng(SEED + 1)
+    requests = [Request(rid=i, prompt=rng.integers(
+        0, model.cfg.vocab, int(rng.choice(e["prompts"]))),
+        max_new_tokens=e["new"]) for i in range(e["requests"])]
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    run = serve(label, model, params, requests, e["width"], e["max_len"])
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches,
+                "ssd_scan": ssd_mod.launches}
+    require_launches(launches)
+    done = run.pop("done")
+    if run["path"] != "exact":
+        raise RuntimeError(f"{label}: admission was not the exact path")
+    check = teacher_forced(label, model, params, done,
+                           pad_to=model.cfg.ssm_chunk)
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, engine=run, check=check,
+                lengths=run.pop("lengths"))
+
+
+def lm_example(dev) -> dict:
+    """examples/partition_and_serve_torch.py's four steps on its reduced
+    gemma2 (local layers with a window of 16, outgrown by its sequences),
+    then the teacher-forced check of its engine's tokens: returns the
+    path's launches, the model's widths and the lengths of the engine's
+    heaviest decode step."""
+    import importlib.util
+
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "partition_and_serve_torch",
+        ROOT / "examples" / "partition_and_serve_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        with decode_lengths() as steps:
+            model, params, eng, done = example.main(["--device", str(dev)])
+    finally:
+        os.chdir(cwd)
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    require_launches(launches)
+    check = teacher_forced("lm example", model, params, done)
+    return dict(launches=launches, check=check, cfg=model.cfg,
+                width=eng.width, max_len=eng.max_len,
+                lengths=heaviest(steps))
+
+
+def decode_row(name, design, dev, B, Smax, H, Hk, hd, lengths, window,
+               launches, launches_of=None):
+    """A decode_attention row at the given widths: the kernel, at the
+    block_k its wrapper chooses as on the path, held against its plain
+    version (``check_decode``) and timed beside it and
+    ``scaled_dot_product_attention`` with the same mask.  ``launches`` is
+    the count of the path that runs these widths, or, with
+    ``launches_of``, of the path named there."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q = torch.randn((B, H, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, Smax, Hk, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.decode_attention_ref(qf, kf, vf, lens, window=window)
+
+    def call():
+        return da_mod.decode_attention(q, k, v, lens, window=window)
+    got = call()
+    err, rel = check_decode(f"{name} vs plain", got, want, want)
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(
+        qf, kf, vf, lens, window=window), runs=10)
+    del kf, vf
+    kpos = torch.arange(Smax, device=dev)
+    mask = kpos[None, :] < lens[:, None]
+    if window:
+        mask &= kpos[None, :] >= lens[:, None] - window
+    qv = q.view(B, H, 1, hd)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask4 = mask[:, None, None, :]
+    if H != Hk:
+        kt, vt = (t.repeat_interleave(H // Hk, dim=1) for t in (kt, vt))
+
+    def lib():
+        return F.scaled_dot_product_attention(qv, kt, vt, attn_mask=mask4)
+    check_decode(f"{name}: scaled_dot_product_attention vs plain",
+                 lib().view(q.shape), want, want)
+    lib_ms = time_ms(lib)
+    plan = da_mod.split_plan(q, k, window=window)
+    rows = int(mask.sum())                   # cache rows the call needs
+    # the bf16 instance at this head_dim: registers, spills and HMMA
+    build = mma_build(name, [da_mod.mma_instances(
+        _build.ptxas_report("decode_attention"))[hd]], [da_mod.mma_instances(
+            _build.sass_opcodes("decode_attention"))[hd]])
+    return dict(
+        name=name, tpu="decode_attention.py:100", design=design,
+        build=dict(**build, nsplit=plan["nsplit"],
+                   ctas_per_sm=plan["ctas_per_sm"],
+                   smem_bytes=plan["smem_bytes"]),
+        shapes=f"q {tuple(q.shape)} bf16, k, v {tuple(k.shape)} bf16, "
+               f"lengths {lengths}, window {window}, "
+               f"block_k={plan['block_k']}; "
+               f"relative norm err {rel:.4g}; library: "
+               "scaled_dot_product_attention with the mask"
+               + (", kv heads repeated" if H != Hk else ""),
+        err=err, tol=f"tol {DEC_ATOL} x RMS abs + {DEC_RTOL} rel, norm "
+                     f"{DEC_NORM}",
+        ms=ms, call_ms=call_ms, host_ms=host, plain_ms=plain_ms,
+        flops=4.0 * H * hd * rows,
+        nbytes=moved_bytes(q, got, lens) + 2.0 * rows * Hk * hd * 2,
+        lib_ms=lib_ms, launches=launches,
+        **({"launches_of": launches_of} if launches_of else {}))
+
+
+def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
+    """The LM models and the serving engine at full size: granite-8b
+    (Scission loop over lm_to_graph, then the bucketed engine), zamba2-2.7b
+    (the exact engine) and the example's reduced gemma2; then a
+    decode_attention row at each engine's widths and the lengths of its
+    heaviest decode step (the example's with its window), and one at gemma2-9b's full widths with its
+    window, which no path runs.  The rows run under the adopted sizes, as
+    the paths did.  Returns those rows."""
+    import time
+
+    import torch
+    from repro_torch.kernels import substrate
+    from repro_torch.models import get_config
+
+    t0 = time.perf_counter()
+    adopted = substrate.adopt_tuned_params(prefill_db, dtype="bfloat16")
+    print(f"lm adopted tuned params from the prefill DB: {adopted}")
+    granite = lm_granite(dev, resources, net, out_dir)
+    print(f"lm granite-8b: {time.perf_counter() - t0:.1f} s of wall time")
+    t1 = time.perf_counter()
+    zamba = lm_zamba(dev)
+    print(f"lm zamba2-2.7b: {time.perf_counter() - t1:.1f} s of wall time")
+    t1 = time.perf_counter()
+    example = lm_example(dev)
+    print(f"lm example: {time.perf_counter() - t1:.1f} s of wall time; "
+          f"launches {example['launches']}")
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    mma = "mma.sync bf16, split-KV, one wave"
+    gr, zc, ec = get_config("granite-8b"), get_config("zamba2-2.7b"), \
+        example["cfg"]
+    gc = get_config("gemma2-9b")
+    ge = GRANITE_ENGINE
+    rows = [
+        decode_row("decode_attention_granite_engine", mma, dev, ge["width"],
+                   ge["max_len"], gr.n_heads, gr.n_kv_heads, gr.head_dim,
+                   granite["lengths"], None,
+                   granite["launches"]["decode_attention"]),
+        decode_row("decode_attention_hd80", f"{mma}; head_dim 80 instance",
+                   dev, ZAMBA_ENGINE["width"], ZAMBA_ENGINE["max_len"],
+                   zc.n_heads, zc.n_kv_heads, zc.head_dim, zamba["lengths"],
+                   None, zamba["launches"]["decode_attention"]),
+        # the example's local layers: its global layers' calls are in the
+        # count too
+        decode_row("decode_attention_window", f"{mma}; sliding window",
+                   dev, example["width"], example["max_len"], ec.n_heads,
+                   ec.n_kv_heads, ec.head_dim, example["lengths"], ec.window,
+                   example["launches"]["decode_attention"]),
+        # gemma2-9b's local layers: a window of 4096 over an 8192-entry
+        # cache at head_dim 256; no path runs these widths
+        decode_row("decode_attention_window_gemma2_9b",
+                   f"{mma}; sliding window", dev, 4, 2 * gc.window,
+                   gc.n_heads, gc.n_kv_heads, gc.head_dim,
+                   [2 * gc.window, gc.window + 1000, gc.window, 1000],
+                   gc.window, example["launches"]["decode_attention"],
+                   launches_of="the reduced gemma2 example (head_dim 32, "
+                               "window 16), not these widths"),
+    ]
+    substrate.clear_tuned_params()
+    print(f"lm decode rows: {time.perf_counter() - t1:.1f} s of wall time")
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s of wall time")
+    return rows
 
 
 def rel_err(got, want) -> float:
@@ -1041,9 +1578,16 @@ def main() -> int:
                  Resource("cloud", "cloud", CLOUD_VM, speed_factor=1.0)]
     net = NetworkModel(default=Link("wired", 0.005, 1e8))
     launches: dict[str, int] = {}
-    kernels = prefill_phase(dev, resources, net, args.out, launches)
+    t0 = time.perf_counter()
+    kernels, prefill_db = prefill_phase(dev, resources, net, args.out,
+                                        launches)
     torch.cuda.empty_cache()          # the prefill tensors are gone
+    print(f"prefill phase: {time.perf_counter() - t0:.1f} s of wall time")
+    t0 = time.perf_counter()
     kernels += decode_phase(dev, resources, net, args.out, launches)
+    torch.cuda.empty_cache()
+    print(f"decode phase: {time.perf_counter() - t0:.1f} s of wall time")
+    kernels += lm_phase(dev, resources, net, args.out, prefill_db)
     torch.cuda.empty_cache()
 
     # the zoo path runs none of the hand-written kernels
@@ -1053,7 +1597,9 @@ def main() -> int:
     fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
     sys.path.insert(0, str(ROOT))
     fp32 = next(v for k, v in FP32_PEAKS.items() if k in name)
+    t0 = time.perf_counter()
     zoo_phase(dev, args.out, fp32, peak_bw)
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s of wall time")
     zoo_launches = {"flash_attention": fa_mod.launches,
                     "ssd_scan": ssd_mod.launches,
                     "decode_attention": da_mod.launches}
@@ -1079,6 +1625,9 @@ def main() -> int:
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         ms, lib_ms, kname = r["ms"], r["lib_ms"], r["name"]
+        n_launch = r.get("launches", launches.get(kname))
+        of = r.get("launches_of")
+        where = f"of {of}" if of else "on the main path"
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
         build = "".join(f"; {k} {v}" for k, v in r.get("build", {}).items())
         print(f"kernel {kname} ({r['design']}{build}): {r['shapes']}; max "
@@ -1087,18 +1636,19 @@ def main() -> int:
               f"ms per call) vs plain {r['plain_ms']:.4f} "
               f"ms, library {lib}; bound {bound_ms:.4f} ms by {bound_by} "
               f"({r['flops'] / 1e9:.2f} GFLOP, {r['nbytes'] / 1e6:.2f} MB); "
-              f"{launches[kname]} launches on the main path; "
+              f"{n_launch} launches {where}; "
               f"{r['flops'] / ms / 1e9:.2f} TFLOP/s, "
               f"{r['nbytes'] / ms / 1e9:.3f} TB/s achieved")
         report.append({
             "name": kname, "route": "cuda", "design": r["design"],
-            "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{r['tpu'].split('.')[0]}.cu",
             "replaces": f"src/repro/kernels/{r['tpu']}",
-            "launches": launches[kname], "max_abs_err": r["err"], "ms": ms,
+            "launches": n_launch, "max_abs_err": r["err"], "ms": ms,
             "call_ms": r["call_ms"],
             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            **r.get("build", {})})
+            **({"launches_of": of} if of else {}), **r.get("build", {})})
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": report}))

@@ -9,6 +9,13 @@
 // denominator and accumulator; the cache is read in one pass; a row with
 // length 0 gives zeros.
 //
+// Beyond the TPU kernel, an optional sliding window (window > 0) also masks
+// kpos < lengths[b] - window: the new token at position lengths[b] - 1 sees
+// the window keys before it and itself, as the models' local attention
+// layers mask decode (repro/models/layers.py _attn_mask, d < window).
+// Tiles wholly before the window are never read: a row's tiles start at
+// the one holding its first key inside the window.
+//
 // What bounds it on this card: per kv head it is two matrix-vector
 // products, 4·B·H·length·hd FLOP (~1.07 GFLOP at granite-8b widths: 16
 // sequences, 32 query heads, 8 kv heads, head_dim 128, 4096 cached tokens)
@@ -134,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
                const T* __restrict__ v, const int* __restrict__ lengths,
                float* __restrict__ ws, int S, int H, int Hk, int hd,
                Strides qs, Strides ks, Strides vs, int bk, int tiles_per_split,
-               int nsplit, float softcap, float scale) {
+               int nsplit, float softcap, int window, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte piece
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = da_layout(bk, hd, sizeof(T), GP);
@@ -159,7 +166,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // lengths outside [0, S] act as the plain version's mask does
   const int len = min(max(lengths[b], 0), S);
-  const int t_begin = split * tiles_per_split;
+  const int lo = window > 0 ? max(len - window, 0) : 0;  // first key seen
+  const int t_begin = lo / bk + split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, (len + bk - 1) / bk);
 
   if (t_begin >= t_end) {  // nothing of this row lies in the split
@@ -175,14 +183,15 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
 
+  // rows before the window are zero-filled: masked, and never read
   auto load_tile = [&](T* dst, const T* src, long long s_stride, int t,
                        int swz) {
     const int start = t * bk;
     const int rows = min(bk, len - start);
     for (int idx = threadIdx.x; idx < rows * cpr; idx += kThreads) {
       const int r = idx / cpr, c = idx % cpr;
-      cp_async16(dst + (size_t)r * hd + (c ^ (r & swz)) * VEC,
-                 src + (start + r) * s_stride + c * VEC);
+      cp_async16(smem_addr(dst + (size_t)r * hd + (c ^ (r & swz)) * VEC),
+                 src + (start + r) * s_stride + c * VEC, start + r >= lo);
     }
   };
 
@@ -243,6 +252,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int g = 0; g < GP; ++g) {
         float x = s[g] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (t * bk + r < lo) x = -INFINITY;  // before the window
         Ps[r * GP + g] = x;
         mx[g] = fmaxf(mx[g], x);
       }
@@ -260,7 +270,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int g = 0; g < GP; ++g) {
       float mt = -INFINITY;
       for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, red_m[w * GP + g]);
-      m_new[g] = fmaxf(m_run[g], mt);  // finite: the tile has a row
+      // finite: the tile has a row at or past lo
+      m_new[g] = fmaxf(m_run[g], mt);
       alpha[g] = m_run[g] == -INFINITY ? 0.f : expf(m_run[g] - m_new[g]);
       sum[g] = 0.f;
     }
@@ -409,7 +420,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                   const bf16* __restrict__ v, const int* __restrict__ lengths,
                   bf16* __restrict__ o, float* __restrict__ ws, int S, int H,
                   int Hk, Strides qs, Strides ks, Strides vs, Strides os,
-                  int stages, int tiles_per_split, int nsplit,
+                  int stages, int tiles_per_split, int nsplit, int window,
                   float scale_log2, float cap_log2, float scale_over_cap) {
   static_assert(HD % 16 == 0 && HD <= 256, "head_dim");
   constexpr int kStride = HD + 8;   // shared row, in elements
@@ -435,7 +446,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   // lengths outside [0, S] act as the plain version's mask does
   const int len = min(max(lengths[b], 0), S);
-  const int t_begin = split * tiles_per_split;
+  const int lo = window > 0 ? max(len - window, 0) : 0;  // first key seen
+  const int t_begin = lo / kTileRows + split * tiles_per_split;
   const int t_end =
       min(t_begin + tiles_per_split, (len + kTileRows - 1) / kTileRows);
   const int ntiles = t_end - t_begin;
@@ -453,7 +465,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  // rows past the length are zero-filled, never read, and masked
+  // rows past the length or before the window are zero-filled, never
+  // read, and masked
   auto load_tile = [&](int t, int st) {
     bf16* Kst = Ring + (size_t)st * 2 * kTileRows * kStride;
     bf16* Vst = Kst + kTileRows * kStride;
@@ -461,7 +474,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int idx = threadIdx.x; idx < kTileRows * kChunks;
          idx += kMmaThreads) {
       const int r = idx / kChunks, c = idx % kChunks;
-      const bool in = r0 + r < len;
+      const bool in = r0 + r < len && r0 + r >= lo;
       const long long row = in ? r0 + r : 0;
       cp_async16(smem_addr(Kst + r * kStride + c * 8),
                  kb + row * ks.s + c * 8, in);
@@ -509,7 +522,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     cp_async_commit();
 
     const int kpos0 = (t_begin + i) * kTileRows + 16 * warp;
-    if (kpos0 >= len) continue;  // this warp's 16 rows are all past it
+    // this warp's 16 rows all lie past the length or before the window
+    if (kpos0 >= len || kpos0 + 16 <= lo) continue;
     const bf16* Kst = Ring + (size_t)(i % stages) * 2 * kTileRows * kStride;
     const unsigned k_base = smem_addr(Kst + k_off);
     const unsigned v_base = smem_addr(Kst + kTileRows * kStride + v_off);
@@ -535,12 +549,14 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int e = 0; e < 4; ++e)
           s[j][e] = cap_log2 * tanhf(s[j][e] * scale_over_cap);
     }
-    if (kpos0 + 16 > len) {
+    if (kpos0 + 16 > len || kpos0 < lo) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kpos0 + 8 * j + 2 * tq + (e & 1) >= len) s[j][e] = -INFINITY;
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = kpos0 + 8 * j + 2 * tq + (e & 1);
+          if (kpos >= len || kpos < lo) s[j][e] = -INFINITY;
+        }
     }
     // the online softmax of flash's kernel: a row with nothing unmasked
     // yet is shifted by 0, never by (-inf) - (-inf)
@@ -643,7 +659,8 @@ template <int HD>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* lengths, void* o, void* ws, int B, int S, int H,
                int Hk, const long long* st, int bk, int tiles_per_split,
-               int nsplit, float softcap, size_t smem, cudaStream_t stream) {
+               int nsplit, float softcap, int window, size_t smem,
+               cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       da_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -656,7 +673,7 @@ int launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
       static_cast<bf16*>(o), static_cast<float*>(ws), S, H, Hk, qs, ks, vs,
-      os, mma_stages(bk), tiles_per_split, nsplit, scale * kLog2e,
+      os, mma_stages(bk), tiles_per_split, nsplit, window, scale * kLog2e,
       softcap * kLog2e, softcap > 0.f ? scale / softcap : 0.f);
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
@@ -672,6 +689,7 @@ inline const void* mma_kernel(int hd) {
   switch (hd) {
     case 32: return (const void*)da_mma_kernel<32>;
     case 64: return (const void*)da_mma_kernel<64>;
+    case 80: return (const void*)da_mma_kernel<80>;
     case 128: return (const void*)da_mma_kernel<128>;
     case 256: return (const void*)da_mma_kernel<256>;
     default: return nullptr;
@@ -697,8 +715,8 @@ template <int GP>
 int launch_simt(const void* q, const void* k, const void* v,
                 const void* lengths, void* o, void* ws, int B, int S, int H,
                 int Hk, int hd, const long long* st, int bk,
-                int tiles_per_split, int nsplit, float softcap, size_t smem,
-                cudaStream_t stream) {
+                int tiles_per_split, int nsplit, float softcap, int window,
+                size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       da_partial<float, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -710,7 +728,7 @@ int launch_simt(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(lengths),
       static_cast<float*>(ws), S, H, Hk, hd, qs, ks, vs, bk, tiles_per_split,
-      nsplit, softcap, 1.0f / sqrtf((float)hd));
+      nsplit, softcap, window, 1.0f / sqrtf((float)hd));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   da_combine<float, GP><<<dim3(groups, B), kThreads, 0, stream>>>(
@@ -735,23 +753,26 @@ inline size_t footprint(int dtype, int G, int hd, int bk) {
 // aligned.  strides: 12 element strides, (batch, head, 1) for q, (batch,
 // sequence, head) for k and v, (batch, head, 1) for o.
 //
-// bfloat16 takes hd in {32, 64, 128, 256}; the splits of tiles_per_split
-// tiles of 64 rows must cover S; block_k sets the ring (stages = block_k /
-// 64 + 1, at least 3); ws holds B * Hk * ceil(G / 16) * nsplit * 16 *
-// (hd + 2) floats and is not read when nsplit = 1.
+// bfloat16 takes hd in {32, 64, 80, 128, 256}; the splits of
+// tiles_per_split tiles of 64 rows must cover S, or with a window the
+// ceil(window / 64) + 1 tiles a row's window touches at most; block_k sets
+// the ring (stages = block_k / 64 + 1, at least 3); ws holds B * Hk *
+// ceil(G / 16) * nsplit * 16 * (hd + 2) floats and is not read when
+// nsplit = 1.
 // float32 takes hd <= 256 a multiple of 4; the splits of tiles_per_split
-// tiles of block_k rows must cover S; ws holds B * Hk * pieces * nsplit *
-// gp * (hd + 2) floats, where gp is G = H / Hk rounded up to 1, 2, 4 or 8
-// and pieces = ceil(G / gp).
+// tiles of block_k rows must cover S, or what a window touches as above;
+// ws holds B * Hk * pieces * nsplit * gp * (hd + 2) floats, where gp is
+// G = H / Hk rounded up to 1, 2, 4 or 8 and pieces = ceil(G / gp).
 //
-// softcap <= 0 means none.  smem_bytes is the caller's footprint figure and
-// must equal this file's.  Returns a cudaError_t code (0 on success).
+// softcap <= 0 means none; window <= 0 means none.  smem_bytes is the
+// caller's footprint figure and must equal this file's.  Returns a
+// cudaError_t code (0 on success).
 extern "C" int da_forward(const void* q, const void* k, const void* v,
                           const void* lengths, void* o, void* ws, int dtype,
                           int B, int S, int H, int Hk, int hd,
                           const long long* strides, int bk,
                           int tiles_per_split, int nsplit, float softcap,
-                          long long smem_bytes, void* stream) {
+                          int window, long long smem_bytes, void* stream) {
   using namespace repro_torch;
   if (Hk < 1 || H % Hk != 0 || bk < 1 || nsplit < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -759,7 +780,10 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
   if (smem == 0 || (long long)smem != smem_bytes)
     return (int)cudaErrorInvalidValue;
   const int rows = dtype == kBFloat16 ? kTileRows : bk;
-  if ((long long)nsplit * tiles_per_split * rows < S)
+  long long need = (S + rows - 1) / rows;  // tiles a row may touch
+  if (window > 0 && (window + rows - 1) / rows + 1 < need)
+    need = (window + rows - 1) / rows + 1;
+  if ((long long)nsplit * tiles_per_split < need)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
@@ -767,8 +791,9 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
 #define DA_HD(D)                                                          \
   case D:                                                                 \
     return launch_mma<D>(q, k, v, lengths, o, ws, B, S, H, Hk, strides,   \
-                         bk, tiles_per_split, nsplit, softcap, smem, s);
-      DA_HD(32) DA_HD(64) DA_HD(128) DA_HD(256)
+                         bk, tiles_per_split, nsplit, softcap, window, smem, \
+                         s);
+      DA_HD(32) DA_HD(64) DA_HD(80) DA_HD(128) DA_HD(256)
 #undef DA_HD
       default:
         return (int)cudaErrorInvalidValue;
@@ -778,13 +803,14 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
 #define DA_GP(P)                                                            \
   case P:                                                                   \
     return launch_simt<P>(q, k, v, lengths, o, ws, B, S, H, Hk, hd, strides, \
-                          bk, tiles_per_split, nsplit, softcap, smem, s);
+                          bk, tiles_per_split, nsplit, softcap, window, smem, \
+                          s);
     DA_GP(1) DA_GP(2) DA_GP(4)
 #undef DA_GP
     default:
       return launch_simt<8>(q, k, v, lengths, o, ws, B, S, H, Hk, hd,
                             strides, bk, tiles_per_split, nsplit, softcap,
-                            smem, s);
+                            window, smem, s);
   }
 }
 

@@ -14,6 +14,10 @@ counts once.
 back to the host (that would synchronise every call); the kernel clamps
 them into that range, which is what the plain version's mask does with
 values outside it.
+
+``window`` goes beyond the TPU kernel: the models' sliding-window layers
+mask decode to the last ``window`` keys (``kpos >= length - window``), and
+the kernel skips the cache tiles wholly before them.
 """
 
 from __future__ import annotations
@@ -26,13 +30,13 @@ import torch
 
 from . import _build
 from .ref import decode_attention_ref
-from .substrate import card_smem_limit
+from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
 
 launches = 0
 
 THREADS = 256           # csrc/decode_attention.cu kThreads (fp32 route)
 WARPS = THREADS // 32
-MMA_HEAD_DIMS = (32, 64, 128, 256)   # head_dims of the bf16 route
+MMA_HEAD_DIMS = (32, 64, 80, 128, 256)   # head_dims of the bf16 route
 TILE_ROWS = 64          # cache rows of a ring stage (bf16 route)
 GROUP_ROWS = 16         # query heads of one m16 tile (bf16 route)
 
@@ -81,6 +85,13 @@ def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
             + _align16(2 * WARPS * gp * 4) + (THREADS // hd) * gp * hd * 4)
 
 
+def window_tiles(n_tiles: int, tile: int, window: int | None) -> int:
+    """The cache tiles of ``tile`` rows a row may touch: all ``n_tiles``,
+    or with a ``window`` at most the ``ceil(window / tile) + 1`` tiles the
+    window overlaps."""
+    return n_tiles if not window else min(n_tiles, -(-window // tile) + 1)
+
+
 def num_splits(ctas: int, n_tiles: int, sm_count: int,
                ctas_per_sm: int) -> tuple[int, int]:
     """(nsplit, tiles per split) for a cache of ``n_tiles`` tiles under a
@@ -115,7 +126,8 @@ def _ctas_per_sm(index: int, dtype: torch.dtype, H: int, Hk: int, hd: int,
 
 @functools.lru_cache(maxsize=None)
 def _plan(device: torch.device, dtype: torch.dtype, B: int, Smax: int, H: int,
-          Hk: int, hd: int, block_k: int) -> dict:
+          Hk: int, hd: int, block_k: int, window: int | None = None
+          ) -> dict:
     bk = min(block_k, Smax)
     nbytes = smem_bytes({"block_k": bk}, ((B, H, hd), (B, Smax, Hk, hd)),
                         dtype)
@@ -129,7 +141,8 @@ def _plan(device: torch.device, dtype: torch.dtype, B: int, Smax: int, H: int,
     groups = Hk * -(-G // rows)
     tile = TILE_ROWS if dtype == torch.bfloat16 else bk
     per_sm = _ctas_per_sm(device.index, dtype, H, Hk, hd, bk, nbytes)
-    nsplit, per = num_splits(B * groups, -(-Smax // tile),
+    nsplit, per = num_splits(B * groups,
+                             window_tiles(-(-Smax // tile), tile, window),
                              _sm_count(device.index), per_sm)
     # the bf16 route writes o itself when the cache is not split
     ws = 0 if dtype == torch.bfloat16 and nsplit == 1 else \
@@ -138,22 +151,45 @@ def _plan(device: torch.device, dtype: torch.dtype, B: int, Smax: int, H: int,
                 nsplit=nsplit, tiles_per_split=per, workspace_floats=ws)
 
 
-def split_plan(q, k, block_k: int = 256) -> dict:
+def block_size(q, k, block_k: int | None = None) -> int:
+    """The ``block_k`` a launch on ``q``, ``k`` asks for.  A size given is
+    used as it is (a launch refuses one whose tiles do not fit); None is the
+    adopted tuned one (``substrate.serving_param``), else the default,
+    halved while the card's shared memory cannot hold the ring at this
+    head_dim and dtype: bf16 at head_dim 256 cannot hold 256."""
+    if block_k is not None:
+        return block_k
+    bk = serving_param("decode_attention", "block_k",
+                       DEFAULT_PARAMS["decode_attention"]["block_k"])
+    limit = card_smem_limit(q.device)
+    while limit is not None and bk > TILE_ROWS and smem_bytes(
+            {"block_k": bk}, (q.shape, k.shape), q.dtype) > limit:
+        bk //= 2
+    return bk
+
+
+def split_plan(q, k, block_k: int | None = None,
+               window: int | None = None) -> dict:
     """How a launch on CUDA tensors ``q``, ``k`` splits the cache: the
-    ``block_k`` it uses, its shared memory per CTA, the CTAs per SM the
-    card can hold at that footprint, ``nsplit``, the tiles per split and
-    the fp32 workspace (floats).  Cached per shape, dtype and device."""
+    ``block_k`` it uses (:func:`block_size`), its shared memory per CTA,
+    the CTAs per SM the card can hold at that footprint, ``nsplit``, the
+    tiles per split and the fp32 workspace (floats).  With a ``window`` the
+    splits cover the tiles a window touches.  Cached per shape, dtype,
+    block_k, window and device."""
     dev = q.device
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return _plan(dev, q.dtype, q.shape[0], k.shape[1], q.shape[1],
-                 k.shape[2], q.shape[2], block_k)
+                 k.shape[2], q.shape[2], block_size(q, k, block_k), window)
 
 
-def decode_attention(q, k, v, lengths, *, softcap=None, block_k=256):
+def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
+                     block_k=None):
     """q: (B, H, hd); k, v: (B, Smax, Hk, hd); lengths: (B,) int32 in
-    ``[0, Smax]``.  Returns (B, H, hd) in q's dtype; ``Smax`` need not
-    divide ``block_k``, and a row with ``length == 0`` gives zeros."""
+    ``[0, Smax]``; ``window``: keys at ``kpos < length - window`` are
+    masked too.  Returns (B, H, hd) in q's dtype; ``Smax`` need not divide
+    ``block_k`` (None: :func:`block_size` chooses), and a row with
+    ``length == 0`` gives zeros."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,H,hd) and k, v (B,Smax,Hk,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -167,16 +203,19 @@ def decode_attention(q, k, v, lengths, *, softcap=None, block_k=256):
                          f"{tuple(lengths.shape)}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if block_k < 1:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if block_k is not None and block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
     if q.device.type in ("cpu", "meta"):
-        return decode_attention_ref(q, k, v, lengths, softcap=softcap)
+        return decode_attention_ref(q, k, v, lengths, softcap=softcap,
+                                    window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch(q, k, v, lengths, softcap, block_k)
+    return _launch(q, k, v, lengths, softcap, window, block_k)
 
 
-def _launch(q, k, v, lengths, softcap, block_k):
+def _launch(q, k, v, lengths, softcap, window, block_k):
     global launches
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype or lengths.dtype != torch.int32:
@@ -203,7 +242,7 @@ def _launch(q, k, v, lengths, softcap, block_k):
             raise ValueError(f"decode_attention kernel reads {name} rows "
                              f"as 16-byte pieces: its storage and strides "
                              f"{t.stride()} must be 16-byte aligned")
-    plan = split_plan(q, k, block_k)
+    plan = split_plan(q, k, block_k, window)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                      device=q.device) if plan["workspace_floats"] else None
@@ -214,7 +253,8 @@ def _launch(q, k, v, lengths, softcap, block_k):
         _build.DTYPE_CODES[q.dtype], B, Smax,
         H, Hk, hd, _build.strides(q, k, v, o), plan["block_k"],
         plan["tiles_per_split"], plan["nsplit"], float(softcap or 0.0),
-        plan["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream)
+        window or 0, plan["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", code)
     launches += 1
     return o

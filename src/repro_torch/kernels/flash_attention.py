@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 from .ref import flash_attention_ref
-from .substrate import card_smem_limit
+from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
 
 launches = 0
 
@@ -69,10 +69,38 @@ def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
     return 4 * (bq * hd + bk * (hd + 1) + bk * hd + bq * bk + bq * hd + 3 * bq)
 
 
+def block_sizes(q, k, block_q=None, block_k=None) -> tuple[int, int]:
+    """The (block_q, block_k) a launch on ``q``, ``k`` uses.  A size given
+    is used as it is (a launch refuses one whose tiles do not fit); a size
+    left None is the adopted tuned one (``substrate.serving_param``), else
+    the default, halved (the larger first, block_k on a tie) while the
+    card's shared memory cannot hold the tiles at this head_dim and dtype:
+    bf16 at head_dim 256 cannot hold 128 x 128."""
+    bq = block_q if block_q is not None else serving_param(
+        "flash_attention", "block_q",
+        DEFAULT_PARAMS["flash_attention"]["block_q"])
+    bk = block_k if block_k is not None else serving_param(
+        "flash_attention", "block_k",
+        DEFAULT_PARAMS["flash_attention"]["block_k"])
+    limit = card_smem_limit(q.device)
+    while limit is not None and smem_bytes(
+            {"block_q": bq, "block_k": bk}, (q.shape, k.shape),
+            q.dtype) > limit:
+        free_q = block_q is None and bq > 16
+        if block_k is None and bk > 16 and (bk >= bq or not free_q):
+            bk //= 2
+        elif free_q:
+            bq //= 2
+        else:
+            break
+    return bq, bk
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    block_q=128, block_k=128):
+                    block_q=None, block_k=None):
     """q: (B, Sq, H, hd); k, v: (B, Sk, Hk, hd) -> (B, Sq, H, hd) in q's
-    dtype.  ``Sq``/``Sk`` need not divide the block sizes."""
+    dtype.  ``Sq``/``Sk`` need not divide the block sizes; sizes left None
+    are chosen by :func:`block_sizes`."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,Sq,H,hd) and k, v (B,Sk,Hk,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -85,7 +113,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if block_q < 1 or block_k < 1:
+    if (block_q is not None and block_q < 1) or \
+            (block_k is not None and block_k < 1):
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
     if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -106,6 +135,7 @@ def _launch(q, k, v, causal, window, softcap, block_q, block_k):
         raise ValueError("q, k, v must be on one device")
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
+    block_q, block_k = block_sizes(q, k, block_q, block_k)
     bq, bk = tile_sizes(block_q, block_k, Sq, Sk, q.dtype)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:

@@ -53,13 +53,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, softcap=None):
+def decode_attention_ref(q, k, v, lengths, *, softcap=None, window=None):
     """One new token per sequence against a KV cache.
 
     q: (B, H, hd); k, v: (B, Smax, Hk, hd) with H % Hk == 0; lengths: (B,)
     int32, the valid cache entries of each row (keys at ``kpos < length``).
-    Query head h reads kv head ``h // (H // Hk)``.  Returns (B, H, hd) in
-    q's dtype; a row with ``length == 0`` gives zeros.
+    With a ``window``, keys at ``kpos < length - window`` are masked too:
+    the new token, at position ``length - 1``, sees the ``window`` keys up
+    to itself, as a sliding-window layer masks decode.  Query head h reads
+    kv head ``h // (H // Hk)``.  Returns (B, H, hd) in q's dtype; a row
+    with ``length == 0`` gives zeros.
     """
     B, H, hd = q.shape
     Smax, Hk = k.shape[1], k.shape[2]
@@ -70,7 +73,10 @@ def decode_attention_ref(q, k, v, lengths, *, softcap=None):
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     kpos = torch.arange(Smax, device=q.device)
-    mask = kpos[None, :] < lengths.to(q.device)[:, None]          # (B, Smax)
+    lengths = lengths.to(q.device)[:, None]
+    mask = kpos[None, :] < lengths                                # (B, Smax)
+    if window is not None:
+        mask &= kpos[None, :] >= lengths - window
     p = _softmax(s.masked_fill(~mask[:, None, None, :], -math.inf))
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)

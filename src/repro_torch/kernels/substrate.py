@@ -336,3 +336,76 @@ class KernelAutotuner:
             rec = TuneRecord(**d)
             tuner.records[(rec.kernel, rec.shape_key, rec.resource)] = rec
         return tuner
+
+
+# ---------------------------------------------------------------------------
+# serving-time tuned-params registry
+# ---------------------------------------------------------------------------
+# A tuned BenchmarkDB documents the block sizes its timings were measured
+# with (``BlockBenchmark.tuned_params``).  Adopting it here makes those
+# winners the process-wide serving defaults, so the LM layers
+# (``models/layers.py`` attention, ``models/ssm.py`` SSD) launch the kernels
+# with the configuration the cost model priced: flash_attention's
+# (block_q, block_k), decode_attention's block_k and ssd_scan's chunk.
+
+_SERVING_PARAMS: dict[str, dict[str, int]] = {}
+
+# the second-minor tile of a dtype by its item size (the reference's
+# ``analysis/tiling.min_tile``): 8 for fp32, 16 for bf16, 32 for int8
+_SUBLANE_BY_ITEMSIZE = {4: 8, 2: 16, 1: 32}
+
+
+def min_sublane(dtype: str | torch.dtype) -> int:
+    """The alignment a tuned block size must keep in ``dtype``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return _SUBLANE_BY_ITEMSIZE.get(dtype.itemsize, 8)
+
+
+def kernel_for_params(params: dict) -> str | None:
+    """Map a tuned-params dict to the kernel it configures by exact
+    parameter-name match ({block_q, block_k} -> flash_attention, ...).
+    ``BlockBenchmark.tuned_params`` is keyed by node name, not kernel, so
+    adoption needs this reverse lookup."""
+    keys = frozenset(params)
+    for kernel, defaults in DEFAULT_PARAMS.items():
+        if keys == frozenset(defaults):
+            return kernel
+    return None
+
+
+def adopt_tuned_params(db, *, dtype="float32") -> dict[str, dict[str, int]]:
+    """Adopt a BenchmarkDB's tuned winners as serving defaults.
+
+    Walks every record's ``tuned_params`` in deterministic order (sorted
+    resources, blocks in order, sorted node names; later entries win),
+    rejects a candidate whose values are not positive multiples of
+    ``dtype``'s tile alignment (:func:`min_sublane`), and installs the
+    survivors.  Returns the adopted ``{kernel: params}`` mapping."""
+    sublane = min_sublane(dtype)
+    adopted: dict[str, dict[str, int]] = {}
+    records = getattr(db, "records", {})
+    for rname in sorted(records):
+        for rec in records[rname]:
+            tuned = getattr(rec, "tuned_params", None) or {}
+            for node in sorted(tuned):
+                params = dict(tuned[node])
+                kernel = kernel_for_params(params)
+                if kernel is None:
+                    continue
+                if all(isinstance(v, int) and v > 0 and v % sublane == 0
+                       for v in params.values()):
+                    adopted[kernel] = params
+    _SERVING_PARAMS.update(adopted)
+    return adopted
+
+
+def serving_param(kernel: str, name: str, fallback: int) -> int:
+    """The adopted tuned value of ``kernel``'s ``name`` parameter, or
+    ``fallback`` when no tuned DB has been adopted."""
+    return int(_SERVING_PARAMS.get(kernel, {}).get(name, fallback))
+
+
+def clear_tuned_params() -> None:
+    """Drop adopted serving defaults (tests / model switches)."""
+    _SERVING_PARAMS.clear()

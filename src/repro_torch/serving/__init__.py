@@ -15,15 +15,17 @@ their imports changed:
   SLO, queue-depth histograms
 * :mod:`repro_torch.serving.sim` — closed-form pipeline throughput
   simulation
+* :mod:`repro_torch.serving.engine` — the continuous-batching
+  model-serving engine over the LM models' prefill and decode steps, which
+  launch the hand-written kernels on the card
 
-Everything the reference's package exports is exported here except
-``ServingEngine``: the continuous-batching engine runs the LM models'
-prefill and decode steps, which the port does not have yet, so it comes
-with them.  ``KVCachePool``, ``Request``, ``ServingStats`` and
+Everything the reference's package exports is exported here.
+``KVCachePool``, ``Request``, ``ServingStats`` and
 ``simulate_pipeline_throughput``, which the reference re-exports through
 its engine module, come from their own modules here.
 """
 
+from .engine import ServingEngine
 from .metrics import PlaneReport, ServingStats, mean, percentile
 from .queues import PROMPT_BUCKETS, KVCachePool, StageQueue, bucket_for
 from .requests import (Arrival, Request, arrivals_to_requests,
@@ -33,8 +35,8 @@ from .sim import simulate_pipeline_throughput
 
 __all__ = [
     "Arrival", "ExecutorBackend", "KVCachePool", "PROMPT_BUCKETS",
-    "PlaneReport", "Request", "RoutedRequest", "Router", "ServingStats",
-    "StageQueue", "VirtualBackend", "arrivals_to_requests", "bucket_for",
+    "PlaneReport", "Request", "RoutedRequest", "Router", "ServingEngine",
+    "ServingStats", "StageQueue", "VirtualBackend", "arrivals_to_requests", "bucket_for",
     "bursty_diurnal_trace", "empirical_rate", "mean", "percentile",
     "poisson_trace", "simulate_pipeline_throughput",
 ]

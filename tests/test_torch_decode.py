@@ -202,6 +202,54 @@ def test_decode_split_plan_fills_one_wave(monkeypatch):
         da_mod._plan.cache_clear()
 
 
+def test_decode_split_plan_with_a_window(monkeypatch):
+    """With a sliding window the splits cover the tiles a row's window can
+    touch (ceil(window / tile) + 1), not the whole cache: gemma2's window of
+    4096 over an 8192-entry cache at head_dim 256 (block_k 128, one CTA per
+    SM at 211,200 B), 4 rows of 8 kv heads."""
+    monkeypatch.setattr(da_mod, "card_smem_limit", lambda d: H100_SMEM)
+    monkeypatch.setattr(da_mod, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(da_mod, "_ctas_per_sm", lambda *a: 1)
+    da_mod._plan.cache_clear()
+    dev = torch.device("cuda", 0)
+    try:
+        assert da_mod.window_tiles(128, 64, None) == 128
+        assert da_mod.window_tiles(128, 64, 4096) == 65
+        assert da_mod.window_tiles(4, 64, 4096) == 4
+        full = da_mod._plan(dev, torch.bfloat16, 4, 8192, 16, 8, 256, 128)
+        win = da_mod._plan(dev, torch.bfloat16, 4, 8192, 16, 8, 256, 128,
+                           4096)
+        assert full["nsplit"] * full["tiles_per_split"] >= 128
+        assert 65 <= win["nsplit"] * win["tiles_per_split"] < 128
+        assert (win["nsplit"], win["tiles_per_split"]) == (4, 17)
+    finally:
+        da_mod._plan.cache_clear()
+
+
+@pytest.mark.parametrize("window", [1, 5, 64])
+def test_decode_window_plain_version_on_cpu(window):
+    """On CPU tensors the wrapper takes its plain version with the window:
+    keys before ``length - window`` do not matter, and a window past every
+    length changes nothing."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((3, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((3, 40, 2, 16))
+                             .astype(np.float32)) for _ in range(2))
+    lengths = torch.tensor([0, 20, 40], dtype=torch.int32)
+    before = da_mod.launches
+    got = da_mod.decode_attention(q, k, v, lengths, window=window)
+    k2, v2 = k.clone(), v.clone()
+    for row, n in enumerate(lengths.tolist()):
+        k2[row, :max(n - window, 0)] = 1e3
+        v2[row, :max(n - window, 0)] = -1e3
+    assert torch.allclose(da_mod.decode_attention(q, k2, v2, lengths,
+                                                  window=window), got)
+    assert torch.equal(da_mod.decode_attention(q, k, v, lengths,
+                                               window=4096),
+                       da_mod.decode_attention(q, k, v, lengths))
+    assert (got[0] == 0).all() and da_mod.launches == before
+
+
 def test_decode_node_draws_once_and_converts_once():
     node = decode_attention_node("a", cache_len=24, kv_heads=2, head_dim=16,
                                  batch=2, seed=3, device="cpu")

@@ -327,6 +327,8 @@ def _fitting_block_ks(q, k, device):
     (2, 512, 32, 1, 64, None),                  # 32: two pieces of 16
     (3, 700, 24, 2, 128, 20.0),                 # 12 a group, softcap
     (2, 1024, 16, 4, 256, 50.0),                # head_dim 256, softcap
+    (4, 1024, 32, 32, 80, None),                # zamba2-2.7b: head_dim 80
+    (2, 300, 8, 2, 80, 30.0),                   # head_dim 80, uneven, cap
 ])
 def test_decode_attention_kernel_matches_plain(cuda, B, Smax, H, Hk, hd,
                                                softcap, dtype):
@@ -368,6 +370,53 @@ def test_decode_attention_masking_exact(cuda):
     got2 = da_mod.decode_attention(q, k2, v2, lengths, block_k=128)
     assert torch.equal(got, got2)
     assert (got[1] == 0).all() and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Smax,H,Hk,hd,softcap,window", [
+    (6, 1024, 16, 8, 256, 50.0, 100),           # gemma2-9b widths, softcap
+    (6, 700, 8, 2, 64, None, 64),               # a window of one tile
+    (6, 4096, 32, 8, 128, None, 1000),          # granite-8b heads, long
+    (6, 333, 32, 32, 80, None, 17),             # head_dim 80, ragged tiles
+    (6, 256, 4, 2, 64, None, 4096),             # a window past the cache
+])
+def test_decode_attention_window_matches_plain(cuda, B, Smax, H, Hk, hd,
+                                               softcap, window, dtype):
+    """A sliding window masks kpos < length - window: lengths 0, 1, inside
+    and past the window, and the whole cache; rows before the window are
+    never read (NaN there changes nothing)."""
+    lengths = [0, 1, min(window, Smax) // 2, min(window + 1, Smax),
+               Smax - 5, Smax]
+    q, k, v, lengths = _decode_inputs(11, B, Smax, H, Hk, hd, dtype, cuda,
+                                      lengths=lengths)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), lengths,
+                                softcap=softcap, window=window)
+    k2, v2 = k.clone(), v.clone()
+    for row, n in enumerate(lengths.tolist()):
+        k2[row, :max(n - window, 0)] = float("nan")
+        v2[row, :max(n - window, 0)] = float("nan")
+    for bk in _fitting_block_ks(q, k, cuda):
+        before = da_mod.launches
+        got = da_mod.decode_attention(q, k, v, lengths, softcap=softcap,
+                                      window=window, block_k=bk)
+        assert da_mod.launches == before + 1
+        _close(got, want, TOL[dtype])
+        assert (got[lengths == 0] == 0).all()
+        got2 = da_mod.decode_attention(q, k2, v2, lengths, softcap=softcap,
+                                       window=window, block_k=bk)
+        assert torch.equal(got, got2)
+
+
+def test_decode_attention_window_splits_cover_only_the_window(cuda):
+    """With a window the cache is split over the tiles a window touches,
+    not over the whole cache."""
+    q = torch.zeros((2, 16, 256), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((2, 4096, 8, 256), device=cuda, dtype=torch.bfloat16)
+    full = da_mod.split_plan(q, k, 128)
+    windowed = da_mod.split_plan(q, k, 128, window=100)
+    assert windowed["nsplit"] * windowed["tiles_per_split"] >= 3
+    assert windowed["nsplit"] * windowed["tiles_per_split"] < \
+        full["nsplit"] * full["tiles_per_split"]
 
 
 def test_decode_attention_refuses_oversized_tiles(cuda):
@@ -643,3 +692,113 @@ def test_block_that_cannot_be_captured_raises(cuda):
     with pytest.raises(RuntimeError):
         KernelAutotuner(device=cuda)._time_candidate(host_sync, (x,))
     assert torch.equal(x + 1, torch.full((4, 8), 2.0, device=cuda))
+
+
+# -- the LM models and the serving engine on the card --------------------------
+LM_SMALL = dict(d_model=64, n_heads=4, head_dim=16, d_ff=128, vocab=128,
+                ssm_state=16, ssm_head_dim=16, ssm_chunk=16, window=16)
+
+
+def _small_lm(arch, device):
+    from repro_torch.models import build_model, get_config
+    cfg = get_config(arch)
+    n_layers = cfg.shared_attn_period * 2 if cfg.shared_attn_period \
+        else len(cfg.pattern) * 2
+    kv = 4 if cfg.n_kv_heads == cfg.n_heads else 2
+    cfg = cfg.replace(n_layers=n_layers, n_kv_heads=kv,
+                      query_pre_attn_scalar=16.0
+                      if cfg.query_pre_attn_scalar else None,
+                      **{k: v for k, v in LM_SMALL.items()
+                         if k != "window" or cfg.window})
+    return build_model(cfg, device=device)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b", "zamba2-2.7b"])
+def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
+    """fp32: forward, prefill and ragged decode steps on the card (fp32
+    kernels, TF32 off) against the CPU (the plain versions): forward at
+    1e-3 absolute plus relative; past a cache by relative norm error at
+    1e-3, since the bf16 caches can round a k (or a conv state) the two
+    compute a float32 ulp apart to neighbouring bf16 values.  Every kernel
+    of the model's path launches."""
+    from repro_torch.models import layers as L
+    cpu = _small_lm(arch, "cpu")
+    card = _small_lm(arch, cuda)
+    params = cpu.init(seed=0, dtype=torch.float32)
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(12)
+    tokens = torch.from_numpy(rng.integers(0, 128, (2, 32), dtype=np.int32))
+    counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    tol = dict(rtol=1e-3, atol=1e-3)
+    want, _ = cpu.forward(params, tokens)
+    got, _ = card.forward(dparams, tokens.to(cuda))
+    _close(got.cpu(), want, tol)
+    caches = [m.init_cache(batch=2, max_len=48) for m in (cpu, card)]
+    want, _ = cpu.prefill(params, tokens, caches[0])
+    got, _ = card.prefill(dparams, tokens.to(cuda), caches[1])
+    assert _rel(got, want) <= 1e-3
+    clen = torch.tensor([32, 20], dtype=torch.int32)
+    for _ in range(3):
+        tok = torch.from_numpy(rng.integers(0, 128, (2, 1), dtype=np.int32))
+        want, _ = cpu.decode_step(params, tok, caches[0], clen)
+        got, _ = card.decode_step(dparams, tok.to(cuda), caches[1],
+                                  clen.to(cuda))
+        assert _rel(got, want) <= 1e-3
+        clen += 1
+    assert fa_mod.launches > counts[0] and da_mod.launches > counts[2]
+    assert (ssd_mod.launches > counts[1]) == (arch == "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b"])
+def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
+    """fp32: the engine on the card yields the CPU engine's greedy tokens,
+    on the bucketed path (gemma2, whose local layers' window of 16 the
+    sequences outgrow) and the exact one (zamba2)."""
+    from repro_torch.models import layers as L
+    from repro_torch.serving import Request, ServingEngine
+    cpu = _small_lm(arch, "cpu")
+    card = _small_lm(arch, cuda)
+    params = cpu.init(seed=1, dtype=torch.float32)
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 128, n) for n in (16, 8, 32, 16, 4)]
+    tokens = []
+    for model, p in ((cpu, params), (card, dparams)):
+        eng = ServingEngine(model, p, width=2, max_len=64)
+        for i, prompt in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=12))
+        eng.warmup()
+        tokens.append([r.tokens for r in sorted(eng.run(),
+                                                key=lambda r: r.rid)])
+    assert tokens[0] == tokens[1]
+
+
+def test_lm_at_head_dim_256_fits_the_card(cuda):
+    """bf16 at head_dim 256 (the gemma configs'): the default flash and
+    decode block sizes do not fit the card's shared memory, so the
+    wrappers launch smaller ones; forward, prefill and decode against the CPU's
+    plain versions on the same bf16 weights, by relative norm error at
+    3e-2."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("gemma2-9b").replace(
+        n_layers=2, d_model=256, d_ff=512, vocab=256, window=32)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(seed=2)
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, 256, (2, 64), dtype=np.int32))
+
+    counts = (fa_mod.launches, da_mod.launches)
+    assert _rel(card.forward(dparams, tokens.to(cuda))[0],
+                cpu.forward(params, tokens)[0]) <= 3e-2
+    caches = [m.init_cache(batch=2, max_len=96) for m in (cpu, card)]
+    want, _ = cpu.prefill(params, tokens, caches[0])
+    got, _ = card.prefill(dparams, tokens.to(cuda), caches[1])
+    assert _rel(got, want) <= 3e-2
+    clen = torch.tensor([64, 50], dtype=torch.int32)
+    tok = torch.tensor([[1], [2]], dtype=torch.int32)
+    want, _ = cpu.decode_step(params, tok, caches[0], clen)
+    got, _ = card.decode_step(dparams, tok.to(cuda), caches[1], clen.to(cuda))
+    assert _rel(got, want) <= 3e-2
+    assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]

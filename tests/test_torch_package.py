@@ -23,7 +23,7 @@ from repro_torch.kernels import (KernelAutotuner, _build,
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.models import cnn_zoo
+from repro_torch.models import DecoderLM, build_model, cnn_zoo, get_config
 from repro_torch.runtime import DagPipelineExecutor, PipelineExecutor
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,7 +59,11 @@ def test_port_import_leaves_jax_unloaded():
             " repro_torch.serving, repro_torch.serving.requests,"
             " repro_torch.serving.queues, repro_torch.serving.metrics,"
             " repro_torch.serving.sim, repro_torch.serving.router,"
-            " repro_torch.runtime.ft;"
+            " repro_torch.runtime.ft, repro_torch.configs,"
+            " repro_torch.models.layers, repro_torch.models.ssm,"
+            " repro_torch.models.lm, repro_torch.models.registry,"
+            " repro_torch.models.graph_adapter, repro_torch.launch.steps,"
+            " repro_torch.launch.serve, repro_torch.serving.engine;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -103,6 +107,8 @@ _ENTRY_POINTS = {
     "cnn_zoo.build": lambda **kw: cnn_zoo.build("MobileNet", **kw),
     "DagPipelineExecutor": lambda **kw: DagPipelineExecutor(
         _graph(), _config(), **kw),
+    "build_model": lambda **kw: build_model(get_config("granite-8b"), **kw),
+    "DecoderLM": lambda **kw: DecoderLM(get_config("zamba2-2.7b"), **kw),
 }
 
 
