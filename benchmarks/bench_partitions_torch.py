@@ -23,14 +23,14 @@ Run standalone in smoke mode::
     PYTHONPATH=src python -m benchmarks.bench_partitions_torch \
         --smoke-frontier
 
-    # lattice vs exhaustive oracle solve times (the chain frontier):
-    PYTHONPATH=src python -m benchmarks.bench_partitions_torch --perf-gate
+    # DAG-general partitioning: branchy MoE / enc-dec graphs, the SP
+    # lattice against the DAG-aware exhaustive oracle, parallel-region
+    # splits:
+    PYTHONPATH=src python -m benchmarks.bench_partitions_torch --smoke-dag
 
-The reference's DAG-general scenario (``scenario_dag``, its ``--smoke-dag``
-mode, and the DAG half of ``perf_gate``) partitions a MoE layer and an
-enc-dec LM built by ``models/graph_adapter.py``; the port has neither the
-LM models nor the adapter yet, so those are not run here, and ``run`` and
-``perf_gate`` say so where they would run them.
+    # lattice vs exhaustive oracle solve times (SP solve and frontier on
+    # the DAG graphs, the chain frontier on MobileNetV2):
+    PYTHONPATH=src python -m benchmarks.bench_partitions_torch --perf-gate
 """
 
 from __future__ import annotations
@@ -530,19 +530,145 @@ def scenario_replan(quick=True, reps=7, device="cuda"):
 scenario_replan.failures = []
 
 
-DAG_WAITS = ("the DAG-general scenario waits for the LM models and "
-             "models/graph_adapter.py, whose MoE layer and enc-dec LM it "
-             "partitions: not run")
+def _dag_graphs(device="cuda"):
+    """Genuinely branchy layer graphs for the DAG-general gate, on
+    ``device`` with weights drawn from seed 0: an expert-sharded MoE layer
+    (diamond with a residual direct edge) and a reduced enc-dec LM (encoder
+    vs target-embedding branches joined at the decoder's
+    cross-attention)."""
+    import torch
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.graph_adapter import (encdec_to_graph,
+                                                  moe_to_graph)
+    from repro_torch.models.moe import moe_spec
+
+    p = L.init_tree(moe_spec(32, 64, 4), 0, torch.float32, device)
+    moe = moe_to_graph(p, batch=1, seq_len=8, d_model=32, n_experts=4,
+                       top_k=2, n_shards=2)
+    cfg = get_config("whisper-medium").replace(
+        name="encdec-smoke", n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
+        head_dim=16, d_ff=128, vocab=256, encoder_layers=4, encoder_len=16,
+        q_chunk=16, remat=False)
+    model = build_model(cfg, device=device)
+    params = model.init(seed=0)
+    encdec = encdec_to_graph(model, params, batch=1, seq_len=8, enc_splits=2)
+    return [moe, encdec]
+
+
+def _splits_parallel_region(dag, assignment) -> bool:
+    """True when ``assignment`` places the blocks of some parallel region
+    on more than one resource — the placement freedom chain fusing cannot
+    express."""
+    owner = {n: b.index for b in dag for n in b.node_ids}
+    for region in dag.parallel_regions:
+        blocks = {owner[n] for n in region}
+        if len({assignment[b] for b in blocks}) > 1:
+            return True
+    return False
+
+
+def _dag_queries():
+    return {
+        "free": Query(top_n=1),
+        "thpt": Query(top_n=1, objective=THROUGHPUT),
+        "must": Query(top_n=1, must_use=("edge1", "edge2")),
+        "tmax": Query(top_n=1, max_resource_time={"device": 1e-4}),
+    }
+
+
+def _dag_engine(s, g):
+    """Benchmark ``g`` fused as a block DAG; its QueryEngine and DAG."""
+    s.benchmark(g, dag=True)
+    spec = g.nodes[0].out_spec
+    return s.engine(g.name, float(spec.nbytes)), s._dags[g.name]
+
+
+def scenario_dag(quick=True, device="cuda"):
+    """DAG-general partitioning gate: branchy graphs fused with
+    ``fuse_block_dag`` over the paper networks, their blocks timed on
+    ``device``.  Gates on (i) the SP-tree lattice returning exactly the
+    DAG-aware exhaustive oracle's result — top-1 score per objective and
+    frontier vector set, free and under constraints — and (ii) at least one
+    optimal/frontier config splitting a parallel region across
+    resources."""
+    import repro_torch.core.query as query_mod
+
+    print("\n# DAG-general partitioning — branchy graphs, lattice vs oracle")
+    scenario_dag.failures = []
+    rows = []
+    graphs = _dag_graphs(device)
+    split_seen = []
+    for net in ("3g", "4g", "wired"):
+        s = scission_for(net, device=device)
+        for g in graphs:
+            eng, dag = _dag_engine(s, g)
+            space = eng._search_space()
+            for qname, q in _dag_queries().items():
+                r_auto = eng.run(q)
+                old = query_mod.EXHAUSTIVE_LIMIT
+                try:
+                    query_mod.EXHAUSTIVE_LIMIT = -1
+                    r_sp = eng.run(q)
+                finally:
+                    query_mod.EXHAUSTIVE_LIMIT = old
+                sc = q.objective.score
+                equal = ([sc(c) for c in r_auto.configs]
+                         == [sc(c) for c in r_sp.configs])
+                if not equal:
+                    scenario_dag.failures.append(
+                        f"solve/{net}/{g.name}/{qname}")
+                for cfg in r_auto.configs + r_sp.configs:
+                    if _splits_parallel_region(dag, cfg.assignment):
+                        split_seen.append(f"{net}/{g.name}/{qname}")
+                rows.append((f"dag/{net}/{g.name}/{qname}",
+                             r_auto.query_time_s * 1e6, r_auto.strategy))
+                rows.append((f"dag_sp/{net}/{g.name}/{qname}",
+                             r_sp.query_time_s * 1e6,
+                             round(sc(r_sp.best), 5) if r_sp.best else None))
+            fe = eng.frontier(strategy="exhaustive")
+            fl = eng.frontier(strategy="lattice")
+            fequal = _frontiers_match(fe.configs, fl.configs)
+            if not fequal:
+                scenario_dag.failures.append(f"frontier/{net}/{g.name}")
+            for cfg in fl.configs:
+                if _splits_parallel_region(dag, cfg.assignment):
+                    split_seen.append(f"{net}/{g.name}/frontier")
+            ok = "PASS" if fequal else "FAIL"
+            print(f"  [{net}] {g.name}: blocks={len(dag)} space={space} "
+                  f"front={len(fe.configs)} "
+                  f"exh={fe.query_time_s * 1e3:.1f}ms "
+                  f"lat={fl.query_time_s * 1e3:.1f}ms {ok}")
+            rows.append((f"dag_front/{net}/{g.name}",
+                         fl.query_time_s * 1e6, len(fl.configs)))
+            rows.append((f"dag_front_oracle/{net}/{g.name}",
+                         fe.query_time_s * 1e6, len(fe.configs)))
+    if not split_seen:
+        scenario_dag.failures.append(
+            "no-split: no optimal config placed a parallel region's "
+            "branches on distinct resources")
+    else:
+        print(f"  parallel-region splits observed at "
+              f"{len(set(split_seen))} query points, e.g. "
+              f"{sorted(set(split_seen))[0]}")
+    rows.append(("dag/split_points", 0.0, len(set(split_seen))))
+    return rows
+
+
+scenario_dag.failures = []
 
 
 def perf_gate(reps=7, threshold=1.5, device="cuda"):
-    """Exact-solver performance gate: the chain frontier lattice must
-    answer within ``threshold``x of the exhaustive oracle's pure solve
-    time (min-of-``reps`` of ``QueryResult.solve_seconds``, both strategies
-    warm — each keeps its natural caches after one cold priming call; the
-    machine is too noisy for mean-of-reps to gate on) on MobileNetV2 under
-    3G, 4G and wired.  The reference also gates the SP solve and frontier
-    on its DAG graphs; those wait with ``scenario_dag``."""
+    """Exact-solver performance gate: on every smoke scenario the lattice
+    (SP solve and SP frontier on the DAG graphs, the chain frontier on
+    MobileNetV2) must answer within ``threshold``x of the exhaustive
+    oracle's pure solve time (min-of-``reps`` of
+    ``QueryResult.solve_seconds``, both strategies warm — each keeps its
+    natural caches after one cold priming call; the machine is too noisy
+    for mean-of-reps to gate on), under 3G, 4G and wired."""
+    import repro_torch.core.query as query_mod
+
     print(f"\n# Perf gate — lattice vs exhaustive oracle "
           f"(min of {reps}, fail > {threshold}x)")
     perf_gate.failures = []
@@ -557,7 +683,37 @@ def perf_gate(reps=7, threshold=1.5, device="cuda"):
         print(f"  {name:34s} {t_lat * 1e6:7.0f}us vs {t_orc * 1e6:7.0f}us "
               f"= {ratio:5.2f}x {'PASS' if ok else 'FAIL'}")
 
-    print(f"  dag_sp, front_dag: {DAG_WAITS}")
+    graphs = _dag_graphs(device)
+    for net in ("3g", "4g", "wired"):
+        s = scission_for(net, device=device)
+        for g in graphs:
+            eng, _ = _dag_engine(s, g)
+            for qname, q in _dag_queries().items():
+                sp = orc = float("inf")
+                old = query_mod.EXHAUSTIVE_LIMIT
+                try:
+                    query_mod.EXHAUSTIVE_LIMIT = -1
+                    eng.run(q)                      # prime lattice caches
+                finally:
+                    query_mod.EXHAUSTIVE_LIMIT = old
+                eng.run(q)                          # prime oracle pool
+                for _ in range(reps):
+                    old = query_mod.EXHAUSTIVE_LIMIT
+                    try:
+                        query_mod.EXHAUSTIVE_LIMIT = -1
+                        sp = min(sp, eng.run(q).solve_seconds)
+                    finally:
+                        query_mod.EXHAUSTIVE_LIMIT = old
+                    orc = min(orc, eng.run(q).solve_seconds)
+                _gate(f"dag_sp/{net}/{g.name}/{qname}", sp, orc)
+            fl = fe = float("inf")
+            eng.frontier(strategy="lattice")
+            eng.frontier(strategy="exhaustive")
+            for _ in range(reps):
+                fl = min(fl, eng.frontier(strategy="lattice").solve_seconds)
+                fe = min(fe, eng.frontier(
+                    strategy="exhaustive").solve_seconds)
+            _gate(f"front_dag/{net}/{g.name}", fl, fe)
     for net in ("3g", "4g", "wired"):
         s = scission_for(net, device=device)
         benchmark_cached(s, "MobileNetV2")
@@ -581,7 +737,8 @@ def failures() -> list[str]:
             + scenario_frontier_exact.failures
             + scenario_frontier_constrained.failures
             + scenario_frontier_scale.failures
-            + scenario_replan.failures + perf_gate.failures)
+            + scenario_replan.failures + scenario_dag.failures
+            + perf_gate.failures)
 
 
 def run(quick: bool = True, device: str = "cuda"):
@@ -597,7 +754,7 @@ def run(quick: bool = True, device: str = "cuda"):
     rows += scenario_frontier_exact(quick, device=device)
     rows += scenario_frontier_constrained(quick, device=device)
     rows += scenario_frontier_scale(quick)
-    print(f"\n# DAG-general partitioning: {DAG_WAITS}")
+    rows += scenario_dag(quick, device=device)
     return rows
 
 
@@ -631,6 +788,14 @@ def smoke_frontier(device="cuda"):
     return rows
 
 
+def smoke_dag(device="cuda"):
+    """CI pass for DAG-general partitioning: branchy MoE / enc-dec graphs
+    over 3G/4G/wired, gated on SP-lattice vs DAG-aware-oracle equality
+    (top-1 per objective, full frontier) and on at least one optimal
+    config splitting a parallel region across resources."""
+    return scenario_dag(quick=True, device=device)
+
+
 def smoke(device="cuda"):
     """Minimal single-model pass for CI: one CNN, all three network
     conditions, exercising the latency, throughput and frontier query
@@ -658,9 +823,14 @@ def main() -> None:
     ap.add_argument("--smoke-frontier", action="store_true",
                     help="CI pass gated on lattice-vs-exhaustive frontier "
                          "equality plus fleet-sized query-time scaling")
+    ap.add_argument("--smoke-dag", action="store_true",
+                    help="CI pass for DAG-general partitioning: branchy "
+                         "graphs, SP lattice vs DAG-aware oracle, "
+                         "parallel-region splits")
     ap.add_argument("--perf-gate", action="store_true",
-                    help="performance gate: the chain frontier lattice "
-                         "must answer within 1.5x of the exhaustive oracle "
+                    help="performance gate: every lattice/SP solve and "
+                         "frontier must answer within 1.5x of the "
+                         "exhaustive oracle on the smoke scenarios "
                          "(warm-vs-warm, min of 7 reps)")
     ap.add_argument("--full", action="store_true", help="all models")
     ap.add_argument("--out", default=None,
@@ -672,6 +842,8 @@ def main() -> None:
         rows, mode = smoke_batched(), "smoke_batched"
     elif args.smoke_frontier:
         rows, mode = smoke_frontier(), "smoke_frontier"
+    elif args.smoke_dag:
+        rows, mode = smoke_dag(), "smoke_dag"
     elif args.smoke:
         rows, mode = smoke(), "smoke"
     elif args.perf_gate:

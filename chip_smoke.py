@@ -89,6 +89,39 @@ example's head_dim 32 with its window of 16), and one at gemma2-9b's full
 widths with its window of 4096, which no path runs and whose launches are
 the example's, labelled so.
 
+The phase then runs the other model families at full size: qwen2-moe-a2.7b
+(24 layers, 60 routed experts padded to 64, top-4, a shared expert; 29.7
+GB of bf16 weights) through the DAG Scission loop over ``moe_to_graph`` of
+its layer 0's MoE (2048 tokens) and the bucketed engine; xlstm-125m (12
+layers alternating mLSTM and sLSTM) through the DAG loop over
+``xlstm_to_graph`` (2048 tokens) and the exact engine, its mLSTMs reaching
+``ssd_scan``'s wide route at 4 heads of 384; whisper-medium (24 + 24
+layers) through a prefill over 8 sequences of 1500 synthetic frames and 32
+greedy decode steps, launches counted by route (flash causal and
+non-causal, decode over the self and the cross cache), then the DAG loop
+over ``encdec_to_graph`` (448 tokens); and internvl2-76b's backbone at full
+width, cut to ``INTERNVL_LAYERS`` of its 80 layers, over 256 synthetic
+patch embeddings and 256 tokens a sequence.  A DAG loop fuses with
+``fuse_block_dag``, times every block as CUDA-graph replays, queries
+through the SP solver and runs the best, the best staged and an
+interleaved partition with ``DagPipelineExecutor``, each equal to the
+whole graph bit for bit.  whisper and internvl2 take the teacher-forced
+check; the MoE and xLSTM engines, whose served computation differs from
+``forward`` by the reference's semantics, are held against the same engine
+under the plain versions fed the kernel run's tokens and routed as the
+kernel run (``ENGINE_TOL``, ``ENGINE_MARGIN``); beside it, unchecked, a
+plain run routed by its own router, the top-k routings that differ from
+the kernel run's, and the MoE's error split by layer on its longest prompt
+(``error_by_layer``, with two faults of the attention for scale).  The
+xLSTM's wide SSD launches are required apart in its DAG loop and in its
+engine.  Six rows follow: ``ssd_scan`` at the mLSTM's widths,
+``flash_attention`` without a mask at whisper's encoder (beside SDPA),
+``decode_attention`` over whisper's cross cache and its self cache, and at
+the qwen2-moe engine's and internvl2's widths (each beside masked SDPA),
+at the lengths of the path's heaviest decode step.
+The ``paper`` phase also runs ``bench_partitions_torch``'s DAG gate, whose
+enc-dec LM must launch flash_attention (the zoo's benchmarks none).
+
 On the card every block time, and every autotuner trial, is the device
 time of replays of the block captured in a CUDA graph (``TimingProvider``,
 ``KernelAutotuner``), as the reference times compiled programs; after each
@@ -104,6 +137,7 @@ non-zero without it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -758,91 +792,118 @@ def _plain_kernels():
     import contextlib
 
     from repro_torch.kernels import ref
+    from repro_torch.models import encdec
     from repro_torch.models import layers as L
     from repro_torch.models import ssm
 
     @contextlib.contextmanager
     def patched():
-        saved = (L.flash_attention, L.decode_attention, ssm.ssd_scan)
-        L.flash_attention = lambda q, k, v, *, causal=True, window=None, \
-            softcap=None, block_q=None, block_k=None: \
-            ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
-        L.decode_attention = lambda q, k, v, lengths, *, softcap=None, \
-            window=None, block_k=None: ref.decode_attention_ref(
-                q, k, v, lengths, softcap=softcap, window=window)
+        saved = (L.flash_attention, L.decode_attention, ssm.ssd_scan,
+                 encdec.flash_attention, encdec.decode_attention)
+        L.flash_attention = encdec.flash_attention = lambda q, k, v, *, \
+            causal=True, window=None, softcap=None, block_q=None, \
+            block_k=None: ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, softcap=softcap)
+        L.decode_attention = encdec.decode_attention = lambda q, k, v, \
+            lengths, *, softcap=None, window=None, block_k=None: \
+            ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
+                                     window=window)
         ssm.ssd_scan = lambda x, la, b, c, *, chunk: ref.ssd_ref(
             x, la, b, c, chunk=chunk)
         try:
             yield
         finally:
-            L.flash_attention, L.decode_attention, ssm.ssd_scan = saved
+            (L.flash_attention, L.decode_attention, ssm.ssd_scan,
+             encdec.flash_attention, encdec.decode_attention) = saved
 
     return patched()
 
 
-def teacher_forced(label, model, params, done, pad_to: int = 1) -> dict:
+def _hold(label, rid, got, want, toks, tol, margin, gen=slice(None)):
+    """One request's logits against the plain run's: raises unless their
+    relative norm error is within ``tol`` and each of ``toks`` (the tokens
+    served at positions ``gen``) equals the plain argmax wherever the plain
+    top-2 margin exceeds ``margin`` x the largest logit difference there;
+    returns (relative error, largest difference, held, positions, agree)."""
+    import numpy as np
+    import torch
+
+    rel = (torch.linalg.vector_norm(got - want)
+           / torch.linalg.vector_norm(want)).item()
+    if not rel <= tol:
+        raise RuntimeError(f"{label} request {rid}: logits' relative norm "
+                           f"error {rel:.4g} over {tol}")
+    got, want = got[gen], want[gen]
+    diff = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    plain_tok = want.argmax(dim=-1).cpu().numpy()
+    toks = np.asarray(toks)
+    hold = gap > margin * diff
+    bad = hold & (toks != plain_tok)
+    if bad.any():
+        raise RuntimeError(
+            f"{label} request {rid}: served tokens differ from the plain "
+            f"argmax at held positions {np.nonzero(bad)[0]} (margins "
+            f"{gap[bad]}, largest logit difference {diff})")
+    return rel, diff, int(hold.sum()), len(hold), int((toks == plain_tok)
+                                                      .sum())
+
+
+def _holds(label, what, holds, tol, margin, note="") -> dict:
+    """``_hold``'s results over a path's requests, printed as one line;
+    raises if no position was held."""
+    rel, diff, held, positions, agree = (
+        max(h[0] for h in holds), max(h[1] for h in holds),
+        *(sum(h[i] for h in holds) for i in (2, 3, 4)))
+    if held == 0:
+        raise RuntimeError(f"{label}: the {what} check held no position")
+    print(f"{label} {what}: {len(holds)} requests, logits' relative norm "
+          f"error up to {rel:.4g} (bound {tol}), largest logit difference "
+          f"{diff:.4g}; tokens held at {held} of {positions} generated "
+          f"positions (plain top-2 margin > {margin} x the difference), all "
+          f"equal; served tokens equal the plain argmax at {agree} of "
+          f"{positions} (not checked){note}")
+    return dict(held=held, positions=positions, rel=rel, diff=diff,
+                agree=agree)
+
+
+def teacher_forced(label, model, params, done, pad_to: int = 1,
+                   inputs=None, prefix: int = 0) -> dict:
     """Each finished request's prompt and generated tokens (the last one
     dropped) through ``forward`` twice, with the kernels and with their
     plain versions; ``pad_to`` pads the sequence with zeros to a multiple
     (Mamba-2's chunk), which causal layers never show the real positions.
-    Raises unless the logits agree within ``LM_TOL`` (relative norm, every
-    position) and the engine's tokens equal the plain argmax at every held
-    position; returns the counts and worst errors."""
+    ``inputs(r)`` gives a request's other ``forward`` arguments (frames,
+    patch embeddings), and ``prefix`` the positions they put before the
+    tokens.  Raises unless the logits agree within ``LM_TOL`` (relative
+    norm, every position) and the engine's tokens equal the plain argmax
+    at every held position (``_hold``, ``LM_MARGIN``); returns the counts
+    and worst errors."""
     import numpy as np
     import torch
     from repro_torch.models import layers as L
 
-    def logits(toks):
+    def logits(toks, kw):
         with torch.no_grad():
-            hidden, _ = model.forward(params, toks)
-            return L.unembed(params["embed"], hidden,
+            hidden, _ = model.forward(params, toks, **kw)
+            return L.unembed(params["embed"], hidden[:, prefix:],
                              softcap=model.cfg.final_softcap)[0]
 
-    held = positions = agree = 0
-    worst_rel = worst_diff = 0.0
+    holds = []
     for r in sorted(done, key=lambda r: r.rid):
         seq = np.concatenate([r.prompt, r.tokens[:-1]]).astype(np.int32)
         n = len(seq)
         padded = np.zeros(-(-n // pad_to) * pad_to, np.int32)
         padded[:n] = seq
         toks = torch.as_tensor(padded, device=model.device)[None]
-        got = logits(toks)[:n]
+        kw = inputs(r) if inputs else {}
+        got = logits(toks, kw)[:n]
         with _plain_kernels():
-            want = logits(toks)[:n]
-        rel = (torch.linalg.vector_norm(got - want)
-               / torch.linalg.vector_norm(want)).item()
-        if not rel <= LM_TOL:
-            raise RuntimeError(f"{label} request {r.rid}: logits' relative "
-                               f"norm error {rel:.4g} over {LM_TOL}")
-        gen = slice(len(r.prompt) - 1, n)          # predicts r.tokens
-        diff = (got[gen] - want[gen]).abs().max().item()
-        top2 = want[gen].topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-        plain_tok = want[gen].argmax(dim=-1).cpu().numpy()
-        engine_tok = np.asarray(r.tokens)
-        hold = margin > LM_MARGIN * diff
-        bad = hold & (engine_tok != plain_tok)
-        if bad.any():
-            raise RuntimeError(
-                f"{label} request {r.rid}: engine tokens differ from the "
-                f"plain argmax at held positions {np.nonzero(bad)[0]} "
-                f"(margins {margin[bad]}, largest logit difference {diff})")
-        held += int(hold.sum())
-        positions += len(hold)
-        agree += int((engine_tok == plain_tok).sum())
-        worst_rel, worst_diff = max(worst_rel, rel), max(worst_diff, diff)
-    if held == 0:
-        raise RuntimeError(f"{label}: the teacher-forced check held no "
-                           "position")
-    print(f"{label} teacher-forced: {len(done)} requests, logits' relative "
-          f"norm error up to {worst_rel:.4g} (bound {LM_TOL}), largest logit "
-          f"difference {worst_diff:.4g}; tokens held at {held} of "
-          f"{positions} generated positions (plain top-2 margin > "
-          f"{LM_MARGIN} x the difference), all equal; engine tokens equal "
-          f"the plain argmax at {agree} of {positions} (not checked)")
-    return dict(held=held, positions=positions, rel=worst_rel,
-                diff=worst_diff, agree=agree)
+            want = logits(toks, kw)[:n]
+        holds.append(_hold(label, r.rid, got, want, r.tokens, LM_TOL,
+                           LM_MARGIN, gen=slice(len(r.prompt) - 1, n)))
+    return _holds(label, "teacher-forced", holds, LM_TOL, LM_MARGIN)
 
 
 def decode_lengths():
@@ -869,6 +930,17 @@ def decode_lengths():
             engine_mod.ServingEngine._decode_step = real
 
     return recording()
+
+
+def kernel_launches() -> dict:
+    """The wrappers' launch counts now, the SSD's wide route's apart."""
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    return {"flash_attention": fa_mod.launches,
+            "decode_attention": da_mod.launches,
+            "ssd_scan": ssd_mod.launches,
+            "ssd_scan wide route": ssd_mod.wide_launches}
 
 
 def heaviest(steps: list) -> list[int]:
@@ -899,9 +971,11 @@ def serve(label, model, params, requests, width, max_len) -> dict:
     start = time.perf_counter()
     for r in requests:           # each request's clock starts with the run
         r.submitted_at = start
+    before = kernel_launches()
     with decode_lengths() as steps:
         done = eng.run()
     torch.cuda.synchronize()
+    in_run = {k: n - before[k] for k, n in kernel_launches().items()}
     stats = eng.stats
     ttft = [r.ttft_s * 1e3 for r in done]
     out = dict(requests=stats.requests, tokens=stats.tokens,
@@ -914,7 +988,7 @@ def serve(label, model, params, requests, width, max_len) -> dict:
                decode_steps=len(decode.events),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                path="exact" if eng.prompt_buckets is None else "bucketed",
-               lengths=heaviest(steps))
+               lengths=heaviest(steps), launches_in_run=in_run)
     if out["requests"] != len(requests):
         raise RuntimeError(f"{label}: served {out['requests']} of "
                            f"{len(requests)} requests")
@@ -1076,6 +1150,760 @@ def lm_example(dev) -> dict:
                 lengths=heaviest(steps))
 
 
+# -- the other model families: MoE, xLSTM, enc-dec, VLM ----------------------
+# qwen2-moe-a2.7b: moe_to_graph's DAG Scission loop over layer 0's MoE at
+# MOE_GRAPH_SEQ tokens, then the bucketed engine; xlstm-125m: the DAG loop
+# over xlstm_to_graph, then the exact engine; whisper-medium: prefill and
+# greedy decode over synthetic frames, then the DAG loop over
+# encdec_to_graph; internvl2-76b's backbone at full width, depth cut to
+# INTERNVL_LAYERS of its 80 layers, over synthetic patch embeddings.
+MOE_GRAPH_SEQ = 2048
+QWEN_ENGINE = dict(width=8, max_len=2048, requests=16, prompt=(64, 1024),
+                   new=32)
+XLSTM_GRAPH_SEQ = 2048
+XLSTM_ENGINE = dict(width=4, max_len=1024, requests=8,
+                    prompts=(128, 256, 512), new=16)
+WHISPER = dict(batch=8, prompt=4, new=32, max_len=448, graph_seq=448,
+               enc_splits=2)
+INTERNVL_LAYERS = 8
+INTERNVL = dict(batch=4, tokens=256, new=16)
+# engine against the same engine with the plain versions (MoE, xLSTM),
+# decided before the first run on the card: the kernel run's logits at
+# every generated position within ENGINE_TOL (relative norm) of the plain
+# run's, the plain run fed the kernel run's tokens; each kernel-run token
+# equal to the plain argmax wherever the plain top-2 margin exceeds
+# ENGINE_MARGIN x the request's largest logit difference
+ENGINE_TOL = 0.1
+ENGINE_MARGIN = 2.0
+
+
+def dag_scission_loop(label, graph, x, resources, net, dev) -> dict:
+    """Scission's loop over a branchy graph: fuse it with
+    ``fuse_block_dag``, time every block on every resource as CUDA-graph
+    replays, query through the SP solver, and run the best partition, the
+    best one over more than one resource and the blocks on the resources in
+    turn (every block edge crossing, branch and skip edges too) with
+    ``DagPipelineExecutor``; each partitioned output must equal the
+    whole-graph run bit for bit.  Prints and returns the block times, the
+    chosen partition and the wall time of each step."""
+    import torch
+
+    import repro_torch.core.query as query_mod
+    from repro_torch.core import (PartitionConfig, Query, Scission, Segment,
+                                  TimingProvider, fuse_blocks)
+    from repro_torch.runtime import DagPipelineExecutor
+
+    t0 = time.perf_counter()
+    whole = run_blocks([b.make_callable() for b in fuse_blocks(graph)],
+                       x)[-1]
+    t_whole = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = Scission(resources=resources, network=net, source="edge1",
+                 provider=TimingProvider(device=dev), runs=5, device=dev)
+    db = s.benchmark(graph, dag=True)
+    dag = s._dags[graph.name]
+    t_bench = time.perf_counter() - t0
+    old = query_mod.EXHAUSTIVE_LIMIT
+    query_mod.EXHAUSTIVE_LIMIT = -1           # the SP lattice, not the oracle
+    try:
+        res = s.query(graph.name, Query(top_n=20),
+                      float(x.numel() * x.element_size()))
+    finally:
+        query_mod.EXHAUSTIVE_LIMIT = old
+    t1 = time.perf_counter()
+    staged = next((c for c in res.configs if len(set(c.assignment)) > 1),
+                  None)
+    interleaved = PartitionConfig(graph.name, tuple(
+        Segment(resources[i % 2].name, i, i) for i in range(len(dag))),
+        0.0, {}, 0.0, 0.0)
+    runs = []
+    for name, cfg in (("best", res.best), ("staged", staged),
+                      ("interleaved", interleaved)):
+        if cfg is None:
+            continue
+        pipe = DagPipelineExecutor(graph, cfg, net, source="edge1",
+                                   device=dev)
+        y, timings = pipe.run(x, collect_timing=True)
+        if y.shape != whole.shape or not torch.equal(y, whole):
+            raise RuntimeError(f"{label}: the {name} DAG partition differs "
+                               "from the whole-graph run")
+        runs.append(name)
+    if not torch.isfinite(whole.float()).all():
+        raise RuntimeError(f"{label}: the graph's output is not finite")
+    blocks = {r.name: [b.mean_time_s * 1e3 for b in db.records[r.name]]
+              for r in resources}
+    for r in resources:
+        print(f"{label} db {r.name}: " + ", ".join(
+            f"{blk.name} {t:.3f} ms" for blk, t in zip(dag, blocks[r.name])))
+    print(f"{label} DAG: {len(graph.nodes)} nodes, {len(dag)} blocks, "
+          f"{len(dag.parallel_regions)} parallel regions; query "
+          f"{res.strategy} {res.query_time_s * 1e3:.1f} ms, best "
+          f"{res.best.describe()[:160]}; partitions {runs} equal the "
+          f"whole graph bit for bit; whole-graph run {t_whole:.1f} s, "
+          f"benchmark {t_bench:.1f} s, partitioned runs "
+          f"{time.perf_counter() - t1:.1f} s of wall time")
+    return dict(blocks=blocks, best=res.best.describe(), runs=runs,
+                dag_blocks=len(dag))
+
+
+def _routes(log, forced=None):
+    """A context manager that records each MoE layer's top-k expert ids,
+    in call order, in ``log["routes"]``; with ``forced`` (another run's
+    log) each call routes to that run's experts instead, weighted by this
+    run's own gates."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    @contextlib.contextmanager
+    def patched():
+        real = moe_mod._route
+
+        def route(p, xt, *, top_k, n_experts):
+            probs, vals, idx = real(p, xt, top_k=top_k, n_experts=n_experts)
+            i = len(log["routes"])
+            log["routes"].append(idx.cpu())
+            if forced is not None:
+                idx = forced["routes"][i].to(idx.device)
+                vals = torch.gather(probs, -1, idx)
+                vals = vals / vals.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+            return probs, vals, idx
+
+        moe_mod._route = route
+        try:
+            yield log
+        finally:
+            moe_mod._route = real
+
+    return patched()
+
+
+def _route_differ(a, b) -> tuple[int, int]:
+    """(routings whose top-k expert set differs, routings) between two
+    runs' ``_routes`` logs."""
+    routed = differ = 0
+    for x, y in zip(a, b):
+        routed += x.shape[0] * x.shape[1]
+        differ += int((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                      .any(dim=-1).sum())
+    return differ, routed
+
+
+def engine_vs_plain(label, model, params, requests, width, max_len) -> dict:
+    """The engine's tokens held against the same engine with the kernels'
+    plain versions (``_plain_kernels``), as ``forward`` cannot hold them
+    for models whose served computation differs from ``forward`` by the
+    reference's own semantics (MoE capacity per bucket's groups, the
+    sLSTM's stabiliser starting at 0 in prefill): the same requests and
+    schedule, the plain run fed the kernel run's tokens (its first token
+    from the kernel run's prefill logits, its decode outputs replaced by
+    the kernel run's), so both see the same inputs at every step.  An MoE
+    layer of the plain run routes to the kernel run's experts, weighted by
+    its own gates (``_routes``): a near tie that bf16 noise breaks the
+    other way would otherwise send a token through other experts, a
+    discrete change that later layers amplify, which says nothing of the
+    kernels.  For an MoE model a second plain run routes by its own
+    router; its error and the (token, layer) routings whose top-k set
+    differs from the kernel run's are printed beside the checked reading,
+    not checked.  Raises unless each request's logits at its generated
+    positions agree within ``ENGINE_TOL`` (relative norm) and every
+    kernel-run token equals the plain argmax where the plain top-2 margin
+    exceeds ``ENGINE_MARGIN`` x the request's largest logit difference
+    (``_hold``)."""
+    import torch
+    from repro_torch.serving import ServingEngine
+
+    def run(forced=None, route=True):
+        log = dict(first={}, steps=[], routes=[])
+        eng = ServingEngine(model, params, width=width, max_len=max_len)
+        for r in requests():
+            eng.submit(r)
+        prefill, decode, admit = eng._prefill, eng._decode, eng._admit_exact
+
+        def admit_logged(req, slot):
+            log["admitting"] = req.rid
+            return admit(req, slot)
+
+        def prefill_logged(p, cache, batch):
+            logits, cache = prefill(p, cache, batch)
+            i = len(log["first"])
+            # the exact path's first token comes from these logits
+            log["first"][i] = (log.pop("admitting", None),
+                               logits[:, -1].float().cpu())
+            if forced is not None:
+                logits = forced["first"][i][1][:, None]
+            return logits, cache
+
+        def decode_logged(p, cache, token, lengths):
+            nxt, logits, cache = decode(p, cache, token, lengths)
+            active = {s: r.rid for s, r in eng.active.items()}
+            i = len(log["steps"])
+            log["steps"].append((active, logits[:, -1].float().cpu(),
+                                 nxt.cpu()))
+            if forced is not None:
+                nxt = forced["steps"][i][2].to(nxt.device)
+            return nxt, logits, cache
+
+        eng._prefill, eng._decode = prefill_logged, decode_logged
+        eng._admit_exact = admit_logged
+        with _routes(log, forced if route else None):
+            done = eng.run()
+        log["done"] = {r.rid: r for r in done}
+        return log
+
+    def per_request(want):
+        """Each request's logits at its generated positions, in order, in
+        the kernel run and in ``want``: the exact path's first token from
+        its prefill, then its decode steps."""
+        if len(got["steps"]) != len(want["steps"]):
+            raise RuntimeError(f"{label}: the plain run took another "
+                               "schedule")
+        per = {rid: ([], []) for rid in got["done"]}
+        for i, (rid, g_log) in sorted(got["first"].items()):
+            if rid is not None:
+                per[rid][0].append(g_log[0])
+                per[rid][1].append(want["first"][i][1][0])
+        for (active, g_log, _), (w_active, w_log, _) in zip(got["steps"],
+                                                             want["steps"]):
+            if active != w_active:
+                raise RuntimeError(f"{label}: the plain run took another "
+                                   "schedule")
+            for slot, rid in active.items():
+                per[rid][0].append(g_log[slot])
+                per[rid][1].append(w_log[slot])
+        return {rid: (torch.stack(g), torch.stack(w))
+                for rid, (g, w) in sorted(per.items())}
+
+    with torch.no_grad():
+        got = run()
+        with _plain_kernels():
+            want = run(forced=got)
+            free = run(forced=got, route=False) if got["routes"] else None
+    holds = []
+    for rid, (g, w) in per_request(want).items():
+        toks = got["done"][rid].tokens
+        if len(toks) != len(g):
+            raise RuntimeError(f"{label} request {rid}: {len(toks)} tokens "
+                               f"for {len(g)} logged positions")
+        holds.append(_hold(label, rid, g, w, toks, ENGINE_TOL,
+                           ENGINE_MARGIN))
+    note, extra = "", {}
+    if free is not None:
+        differ, routed = _route_differ(got["routes"], free["routes"])
+        free_rel = max((torch.linalg.vector_norm(g - w)
+                        / torch.linalg.vector_norm(w)).item()
+                       for g, w in per_request(free).values())
+        note = (f"; plain routed as the kernel run (checked) beside plain "
+                f"routed by its own router: relative norm error up to "
+                f"{free_rel:.4g} (not checked), top-k expert sets differ at "
+                f"{differ} of {routed} (token, layer) routings over "
+                f"{len(got['routes'])} MoE calls, bucket padding included")
+        extra = dict(free_rel=free_rel, route_differ=differ, routed=routed)
+    return _holds(label, "engine vs plain engine", holds, ENGINE_TOL,
+                  ENGINE_MARGIN, note) | extra
+
+
+def error_by_layer(label, model, params, tokens) -> dict:
+    """Where an MoE model's error against its plain versions arises and
+    grows: ``tokens`` (1, S) through ``forward`` with the kernels, then with
+    the plain versions routed as the kernel run (``_routes``), routed by
+    their own router, and routed as the kernel run under two faults of the
+    attention that the engine check must see: q, k and v rounded to fp8
+    (e4m3) before it (a lower-precision kernel), and each query's own key
+    replaced by its predecessor (an off-by-one in the cache's rows).
+    Prints the residual stream's relative norm error against the kernel
+    run after each layer group, and the logits' over all positions; returns
+    the logits' errors.  Nothing here is checked."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import layers as L
+
+    hiddens = []
+    real_group = model._apply_group
+
+    def group(*args, **kwargs):
+        out = real_group(*args, **kwargs)
+        hiddens[-1].append(out[0].float())
+        return out
+
+    def run(forced=None):
+        log = dict(routes=[])
+        hiddens.append([])
+        with torch.no_grad(), _routes(log, forced):
+            hidden, _ = model.forward(params, tokens)
+            log["logits"] = L.unembed(params["embed"], hidden,
+                                      softcap=model.cfg.final_softcap)[0] \
+                .float()
+        log["hidden"] = hiddens.pop()
+        return log
+
+    @contextlib.contextmanager
+    def faulty(fault):
+        plain = L.flash_attention
+
+        def attention(q, k, v, **kw):
+            if fault == "fp8":
+                q, k, v = (t.to(torch.float8_e4m3fn).to(t.dtype)
+                           for t in (q, k, v))
+            else:
+                k, v = (torch.cat([t[:, :1], t[:, :-1]], dim=1)
+                        for t in (k, v))
+            return plain(q, k, v, **kw)
+
+        L.flash_attention = attention
+        try:
+            yield
+        finally:
+            L.flash_attention = plain
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(b)).item()
+
+    model._apply_group = group
+    try:
+        got = run()
+        with _plain_kernels():
+            runs = {"routed as the kernel run": run(forced=got),
+                    "own router": run()}
+            for fault in ("fp8", "off-by-one"):
+                with faulty(fault):
+                    runs[f"routed as the kernel run, {fault} attention"] = \
+                        run(forced=got)
+    finally:
+        del model._apply_group
+    out = {}
+    for name, want in runs.items():
+        layers = [rel(g, w) for g, w in zip(got["hidden"], want["hidden"])]
+        out[name] = rel(got["logits"], want["logits"])
+        differ, routed = _route_differ(got["routes"], want["routes"])
+        print(f"{label} forward of {tokens.shape[1]} tokens, kernels vs "
+              f"plain {name}: logits' relative norm error {out[name]:.4g}; "
+              f"top-k sets differ at {differ} of {routed}; residual stream "
+              f"after each layer: " + ", ".join(f"{e:.3g}" for e in layers))
+    return out
+
+
+def _requests(vocab, spec, seed):
+    """The engine's seeded requests: prompt lengths uniform in
+    ``spec["prompt"]`` or drawn from ``spec["prompts"]``."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+
+    def length():
+        if "prompts" in spec:
+            return int(rng.choice(spec["prompts"]))
+        return int(rng.integers(spec["prompt"][0], spec["prompt"][1] + 1))
+
+    return [Request(rid=i, prompt=rng.integers(0, vocab, length()),
+                    max_new_tokens=spec["new"])
+            for i in range(spec["requests"])]
+
+
+def lm_qwen_moe(dev, resources, net, cfg=None) -> dict:
+    """qwen2-moe-a2.7b: moe_to_graph's DAG loop over layer 0's MoE, then
+    the bucketed engine and the engine-against-plain check; returns the
+    path's launches, numbers and its heaviest decode step's lengths."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.graph_adapter import moe_to_graph
+
+    label = "lm qwen2-moe-a2.7b"
+    model, params = lm_model("qwen2-moe-a2.7b", dev, cfg)
+    c = model.cfg
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    moe_p = {k: v[0] for k, v in
+             params["layers"]["s1_moe"]["moe"].items() if k != "shared"}
+    graph = moe_to_graph(moe_p, batch=1, seq_len=MOE_GRAPH_SEQ,
+                         d_model=c.d_model, n_experts=c.moe_experts,
+                         top_k=c.moe_top_k, n_shards=2,
+                         activation=c.activation, name="qwen2-moe-layer0")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    acts = torch.randn((1, MOE_GRAPH_SEQ, c.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    graph_run = dag_scission_loop("lm-qwen2-moe", graph, acts, resources,
+                                  net, dev)
+    del graph, acts
+    requests = lambda: _requests(c.vocab, QWEN_ENGINE, SEED + 2)  # noqa
+    e = QWEN_ENGINE
+    run = serve(label, model, params, requests(), e["width"], e["max_len"])
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    require_launches(launches)
+    run.pop("done")
+    check = engine_vs_plain(label, model, params, requests, e["width"],
+                            e["max_len"])
+    # the requests' prompts, joined, cut to the longest prompt's bound in
+    # whole MoE groups
+    n = e["prompt"][1] // c.moe_group_size * c.moe_group_size
+    joined = np.concatenate([r.prompt for r in requests()])[:n]
+    split = error_by_layer(label, model, params, torch.as_tensor(
+        joined, dtype=torch.int32, device=dev)[None])
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, graph=graph_run, engine=run, check=check,
+                split=split, lengths=run.pop("lengths"))
+
+
+def lm_xlstm(dev, resources, net, cfg=None) -> dict:
+    """xlstm-125m: xlstm_to_graph's DAG loop, then the exact engine and the
+    engine-against-plain check; returns the path's launches (the SSD's
+    wide route's among them) and numbers."""
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.graph_adapter import xlstm_to_graph
+
+    label = "lm xlstm-125m"
+    model, params = lm_model("xlstm-125m", dev, cfg)
+    c = model.cfg
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    ssd_mod.wide_launches = 0
+    t0 = time.perf_counter()
+    graph = xlstm_to_graph(model, params, batch=1, seq_len=XLSTM_GRAPH_SEQ)
+    print(f"{label} graph built and traced in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    tokens = torch.randint(0, c.vocab, (1, XLSTM_GRAPH_SEQ), generator=gen,
+                           device=dev, dtype=torch.int32)
+    graph_run = dag_scission_loop("lm-xlstm", graph, tokens, resources, net,
+                                  dev)
+    del graph, tokens
+    dag = {"ssd_scan (DAG loop)": ssd_mod.launches,
+           "ssd_scan wide route (DAG loop)": ssd_mod.wide_launches}
+    require_launches(dag)
+    requests = lambda: _requests(c.vocab, XLSTM_ENGINE, SEED + 3)  # noqa
+    e = XLSTM_ENGINE
+    t0 = time.perf_counter()
+    ssd_mod.launches = ssd_mod.wide_launches = 0
+    run = serve(label, model, params, requests(), e["width"], e["max_len"])
+    if run["path"] != "exact":
+        raise RuntimeError(f"{label}: admission was not the exact path")
+    launches = {"ssd_scan (engine)": ssd_mod.launches,
+                "ssd_scan wide route (engine)": ssd_mod.wide_launches,
+                "ssd_scan wide route (engine's run, warm-up excluded)":
+                    run["launches_in_run"]["ssd_scan wide route"]}
+    require_launches(launches)
+    launches = dag | launches
+    run.pop("done")
+    t1 = time.perf_counter()
+    check = engine_vs_plain(label, model, params, requests, e["width"],
+                            e["max_len"])
+    print(f"{label}: engine with its warm-up {t1 - t0:.1f} s, engine vs "
+          f"plain {time.perf_counter() - t1:.1f} s of wall time")
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, graph=graph_run, engine=run, check=check)
+
+
+def _route_counter(module, name, counts, key_of):
+    """``module.<name>`` (a kernel entry point a model calls) wrapped so
+    that each call adds the launches it made, read from the wrapper's own
+    count, to ``counts[key_of(args, kwargs)]``; returns the original."""
+    import importlib
+    real = getattr(module, name)
+    kernel = importlib.import_module(real.__module__)
+
+    def counted(*args, **kwargs):
+        before = kernel.launches
+        out = real(*args, **kwargs)
+        counts[key_of(args, kwargs)] += kernel.launches - before
+        return out
+
+    setattr(module, name, counted)
+    return real
+
+
+def lm_whisper(dev, resources, net, cfg=None) -> dict:
+    """whisper-medium: ``make_prefill_step`` over synthetic frames and a
+    prompt, greedy ``make_decode_step`` s, the teacher-forced check, then
+    encdec_to_graph's DAG loop; returns the launches by route (flash causal
+    and non-causal, decode over the self and the cross cache) and the
+    numbers."""
+    import types
+
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encdec, vision
+    from repro_torch.models import layers as L
+    from repro_torch.models.graph_adapter import encdec_to_graph
+
+    label = "lm whisper-medium"
+    model, params = lm_model("whisper-medium", dev, cfg)
+    c, w = model.cfg, WHISPER
+    frames = vision.synthetic_embeds(
+        SEED + 7, vision.frame_embed_spec(w["batch"], c.encoder_len,
+                                          c.d_model), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    prompt = torch.randint(0, c.vocab, (w["batch"], w["prompt"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    routes = Counter()
+    saved = [(encdec, "flash_attention", _route_counter(
+                 encdec, "flash_attention", routes,
+                 lambda a, k: "flash non-causal")),
+             (L, "flash_attention", _route_counter(
+                 L, "flash_attention", routes,
+                 lambda a, k: "flash causal" if k.get("causal", True)
+                 else "flash non-causal")),
+             (encdec, "decode_attention", _route_counter(
+                 encdec, "decode_attention", routes,
+                 lambda a, k: "decode cross")),
+             (L, "decode_attention", _route_counter(
+                 L, "decode_attention", routes,
+                 lambda a, k: "decode self"))]
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    prefill, decode = StepClock(), StepClock()
+    step_p = prefill.wrap(make_prefill_step(model))
+    step_d = decode.wrap(make_decode_step(model))
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(w["batch"], w["max_len"])
+            logits, cache = step_p(params, cache, {"tokens": prompt,
+                                                   "frames": frames})
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            out = [tok]
+            clen = torch.full((w["batch"],), w["prompt"], dtype=torch.int32,
+                              device=dev)
+            for _ in range(w["new"] - 1):
+                tok, _, cache = step_d(params, cache, tok, clen)
+                out.append(tok)
+                clen = clen + 1
+        # the last step's self-attention lengths (the heaviest): its cache
+        # length plus one
+        last = clen.tolist()
+        torch.cuda.synchronize()
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches, **dict(routes)}
+    require_launches(launches)
+    gen_toks = torch.cat(out, dim=1).cpu().numpy()
+    p_ms, d_ms = prefill.ms(), decode.ms()
+    print(f"{label}: prefill step ({w['batch']} x {c.encoder_len} frames, "
+          f"{w['prompt']}-token prompts) {p_ms[0]:.3f} ms; decode step "
+          f"median {statistics.median(d_ms):.3f} ms over {len(d_ms)} "
+          f"(CUDA events); {gen_toks.shape[1]} tokens a sequence; "
+          f"launches by route {dict(routes)}")
+    del cache
+    done = [types.SimpleNamespace(rid=b, prompt=prompt[b].cpu().numpy(),
+                                  tokens=list(gen_toks[b]))
+            for b in range(w["batch"])]
+    check = teacher_forced(label, model, params, done,
+                           inputs=lambda r: {"frames":
+                                             frames[r.rid:r.rid + 1]})
+    del frames
+    graph = encdec_to_graph(model, params, batch=1, seq_len=w["graph_seq"],
+                            enc_splits=w["enc_splits"])
+    tokens = torch.randint(0, c.vocab, (1, w["graph_seq"]), generator=gen,
+                           device=dev, dtype=torch.int32)
+    graph_run = dag_scission_loop("lm-whisper", graph, tokens, resources,
+                                  net, dev)
+    del model, params, graph
+    torch.cuda.empty_cache()
+    return dict(launches=launches, graph=graph_run, check=check,
+                prefill_ms=p_ms[0], decode_ms=statistics.median(d_ms),
+                lengths=last)
+
+
+def lm_internvl(dev, cfg=None) -> dict:
+    """internvl2-76b's backbone at full width, depth cut to
+    ``INTERNVL_LAYERS`` layers: one prefill over synthetic patch
+    embeddings plus tokens, greedy decode steps, the teacher-forced check;
+    returns the launches and numbers."""
+    import types
+
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import get_config, vision
+
+    label = "lm internvl2-76b"
+    full = get_config("internvl2-76b")
+    cfg = cfg or full.replace(n_layers=INTERNVL_LAYERS)
+    print(f"{label} reduced: depth {cfg.n_layers} of {full.n_layers} "
+          "layers (one card's time and memory); widths as published")
+    model, params = lm_model("internvl2-76b", dev, cfg)
+    c, v = model.cfg, INTERNVL
+    patches = vision.synthetic_embeds(
+        SEED + 8, vision.patch_embed_spec(v["batch"], c.n_img_tokens,
+                                          c.d_model), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    prompt = torch.randint(0, c.vocab, (v["batch"], v["tokens"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    prefill, decode = StepClock(), StepClock()
+    step_p = prefill.wrap(make_prefill_step(model))
+    step_d = decode.wrap(make_decode_step(model))
+    n0 = c.n_img_tokens + v["tokens"]
+    with torch.no_grad():
+        cache = model.init_cache(v["batch"], n0 + v["new"])
+        logits, cache = step_p(params, cache, {"tokens": prompt,
+                                               "patch_embeds": patches})
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out = [tok]
+        clen = torch.full((v["batch"],), n0, dtype=torch.int32, device=dev)
+        for _ in range(v["new"] - 1):
+            tok, _, cache = step_d(params, cache, tok, clen)
+            out.append(tok)
+            clen = clen + 1
+    # the last step's lengths (the heaviest): its cache length plus one
+    last = clen.tolist()
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    require_launches(launches)
+    p_ms, d_ms = prefill.ms(), decode.ms()
+    print(f"{label}: prefill step ({v['batch']} x ({c.n_img_tokens} patch "
+          f"embeddings + {v['tokens']} tokens)) {p_ms[0]:.3f} ms; decode "
+          f"step median {statistics.median(d_ms):.3f} ms over {len(d_ms)} "
+          f"(CUDA events); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del cache
+    gen_toks = torch.cat(out, dim=1).cpu().numpy()
+    done = [types.SimpleNamespace(rid=b, prompt=prompt[b].cpu().numpy(),
+                                  tokens=list(gen_toks[b]))
+            for b in range(v["batch"])]
+    check = teacher_forced(label, model, params, done,
+                           inputs=lambda r: {"patch_embeds":
+                                             patches[r.rid:r.rid + 1]},
+                           prefix=c.n_img_tokens)
+    del model, params, patches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, check=check, prefill_ms=p_ms[0],
+                decode_ms=statistics.median(d_ms), layers=cfg.n_layers,
+                max_len=n0 + v["new"], lengths=last)
+
+
+def ssd_mlstm_row(dev, launches, by_stage=None) -> dict:
+    """The ssd_scan row at xlstm-125m's mLSTM widths: x = v i, b = k /
+    sqrt(384), c = q, (1, 2048, 4, 384) bf16, log_a = log sigmoid(f) in
+    fp32, chunk 128 (the wide route), held against the plain version and
+    timed beside it; ``launches`` are the xLSTM path's wide-route ones,
+    ``by_stage`` the same by stage."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    Bn, Sn, Hn, P, chunk = 1, XLSTM_GRAPH_SEQ, 4, 384, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    shape = (Bn, Sn, Hn, P)
+    v, k, q = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    i_g, f_g = (torch.randn(shape[:3], generator=gen, device=dev)
+                for _ in range(2))
+    x = (v * torch.sigmoid(i_g)[..., None]).to(torch.bfloat16)
+    b = (k / math.sqrt(P)).to(torch.bfloat16)
+    c = q.to(torch.bfloat16)
+    la = F.logsigmoid(f_g)
+    y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=chunk)
+    args = (x.float(), la, b.float(), c.float())
+    y_ref, fin_ref = ref.ssd_ref(*args, chunk=chunk)
+    err = check_close("ssd_scan_mlstm_hd384 y vs plain", y, y_ref)
+    fin_err = check_close("ssd_scan_mlstm_hd384 final state vs plain", fin,
+                          fin_ref)
+
+    def call():
+        return ssd_mod.ssd_scan(x, la, b, c, chunk=chunk)
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    split = kernel_split(call)
+    plain_ms = time_ms(lambda: ref.ssd_ref(*args, chunk=chunk), runs=10)
+    nc = -(-Sn // chunk)
+    tri = chunk * (chunk + 1) // 2
+    flops = 2.0 * Bn * Hn * nc * (tri * P + tri * P + 2 * chunk * P * P)
+    ws_bytes = ssd_mod.workspace_bytes({"chunk": chunk}, (x.shape, b.shape),
+                                       x.dtype)
+    passes = {name: ssd_mod.mma_passes(report("ssd_scan"), P, la.dtype, P)
+              for name, report in (("ptxas", _build.ptxas_report),
+                                   ("sass", _build.sass_opcodes))}
+    build = mma_build("ssd_scan_mlstm_hd384",
+                      sum(passes["ptxas"].values(), []),
+                      sum(passes["sass"].values(), []))
+    print("ssd_scan_mlstm_hd384 device time per pass (torch.profiler): " + (
+        ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        or "not measured"))
+    print("ssd_scan_mlstm_hd384 bf16 passes: " + "; ".join(
+        f"{name}: registers {max(e['registers'] for e in es)}, spill stores "
+        f"{max(e['spill_stores'] for e in es)}, HMMA "
+        f"{min(o['HMMA'] for o in passes['sass'][name])}"
+        for name, es in sorted(passes["ptxas"].items())))
+    return dict(
+        name="ssd_scan_mlstm_hd384", tpu="ssd_scan.py:93",
+        design="mma.sync bf16, chunk-parallel 3-pass, wide route (64 x 128 "
+               "state tiles; N streamed in slabs of 64 over 128-wide P "
+               "tiles)",
+        build=dict(**build, workspace_bytes=ws_bytes),
+        shapes=f"x, b, c {shape} bf16 (x = v sigmoid(i), b = k / sqrt(384), "
+               f"c = q), log_a fp32, chunk={chunk}; final-state max abs err "
+               f"{fin_err:.4g}; workspace {ws_bytes} B",
+        err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
+        host_ms=host, plain_ms=plain_ms, flops=flops,
+        nbytes=moved_bytes(x, la, b, c, y, fin), lib_ms=None,
+        launches=launches, **({"launches_split": by_stage} if by_stage else {}))
+
+
+def flash_noncausal_row(dev, launches) -> dict:
+    """flash_attention without a mask at whisper-medium's encoder: q = k =
+    v shapes (8, 1500, 16, 64) bf16, against its plain version, timed
+    beside it and non-causal ``scaled_dot_product_attention``;
+    ``launches`` are the whisper path's non-causal ones."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models import get_config
+
+    c = get_config("whisper-medium")
+    shape = (WHISPER["batch"], c.encoder_len, c.n_heads, c.head_dim)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    got = fa_mod.flash_attention(q, k, v, causal=False)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    err = check_close("flash_attention_noncausal_whisper vs plain", got,
+                      ref.flash_attention_ref(qf, kf, vf, causal=False))
+
+    def call():
+        return fa_mod.flash_attention(q, k, v, causal=False)
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(qf, kf, vf,
+                                                       causal=False), runs=10)
+    del qf, kf, vf
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt)
+    check_close("flash_attention_noncausal_whisper: SDPA vs the kernel",
+                lib.transpose(1, 2), got)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    B_, S_, H_, hd = shape
+    sass = fa_mod.mma_instances(_build.sass_opcodes("flash_attention"))
+    ptxas = fa_mod.mma_instances(_build.ptxas_report("flash_attention"))
+    build = mma_build("flash_attention_noncausal_whisper", ptxas[hd],
+                      sass[hd])
+    return dict(
+        name="flash_attention_noncausal_whisper", tpu="flash_attention.py:122",
+        design="mma.sync bf16, no mask", build=build,
+        shapes=f"q, k, v {shape} bf16, causal=False (whisper-medium's "
+               "encoder); library: scaled_dot_product_attention, no mask",
+        err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
+        host_ms=host, plain_ms=plain_ms, flops=4.0 * B_ * H_ * hd * S_ * S_,
+        nbytes=moved_bytes(q, k, v, got), lib_ms=lib_ms, launches=launches)
+
+
 def decode_row(name, design, dev, B, Smax, H, Hk, hd, lengths, window,
                launches, launches_of=None):
     """A decode_attention row at the given widths: the kernel, at the
@@ -1152,11 +1980,18 @@ def decode_row(name, design, dev, B, Smax, H, Hk, hd, lengths, window,
 def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
     """The LM models and the serving engine at full size: granite-8b
     (Scission loop over lm_to_graph, then the bucketed engine), zamba2-2.7b
-    (the exact engine) and the example's reduced gemma2; then a
+    (the exact engine), the example's reduced gemma2, qwen2-moe-a2.7b (DAG
+    loop over its layer 0 MoE, the bucketed engine), xlstm-125m (DAG loop,
+    the exact engine), whisper-medium (prefill and decode over frames, DAG
+    loop) and internvl2-76b's backbone cut in depth; then a
     decode_attention row at each engine's widths and the lengths of its
-    heaviest decode step (the example's with its window), and one at gemma2-9b's full widths with its
-    window, which no path runs.  The rows run under the adopted sizes, as
-    the paths did.  Returns those rows."""
+    heaviest decode step (the example's with its window), one at
+    gemma2-9b's full widths with its window, which no path runs, and the
+    rows of the new routes: ssd_scan at the mLSTM's 384-wide heads, flash
+    without a mask and decode over whisper's cross cache; then decode rows
+    at the other families' widths and the lengths of their heaviest step
+    (whisper's self-attention, the qwen2-moe engine, internvl2).  The rows
+    run under the adopted sizes, as the paths did.  Returns those rows."""
     import time
 
     import torch
@@ -1164,6 +1999,7 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
     from repro_torch.models import get_config
 
     t0 = time.perf_counter()
+    gc.collect()
     adopted = substrate.adopt_tuned_params(prefill_db, dtype="bfloat16")
     print(f"lm adopted tuned params from the prefill DB: {adopted}")
     granite = lm_granite(dev, resources, net, out_dir)
@@ -1176,12 +2012,33 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
     print(f"lm example: {time.perf_counter() - t1:.1f} s of wall time; "
           f"launches {example['launches']}")
     torch.cuda.empty_cache()
+    others = {}
+    for name, fn in (("qwen2-moe-a2.7b",
+                      lambda: lm_qwen_moe(dev, resources, net)),
+                     ("xlstm-125m", lambda: lm_xlstm(dev, resources, net)),
+                     ("whisper-medium",
+                      lambda: lm_whisper(dev, resources, net)),
+                     ("internvl2-76b", lambda: lm_internvl(dev))):
+        t1 = time.perf_counter()
+        others[name] = fn()
+        # the last model's weights may hang on reference cycles (a graph's
+        # closures): free them before the next model's peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"lm {name}: {time.perf_counter() - t1:.1f} s of wall time; "
+              f"launches {others[name]['launches']}")
 
     t1 = time.perf_counter()
     mma = "mma.sync bf16, split-KV, one wave"
     gr, zc, ec = get_config("granite-8b"), get_config("zamba2-2.7b"), \
         example["cfg"]
-    gc = get_config("gemma2-9b")
+    g9, wc = get_config("gemma2-9b"), get_config("whisper-medium")
+    qc, ic = get_config("qwen2-moe-a2.7b"), get_config("internvl2-76b")
+    qwen, whisper, internvl = (others[n] for n in (
+        "qwen2-moe-a2.7b", "whisper-medium", "internvl2-76b"))
+    xl = others["xlstm-125m"]["launches"]
+    wide = {stage: xl[f"ssd_scan wide route ({stage})"]
+            for stage in ("DAG loop", "engine")}
     ge = GRANITE_ENGINE
     rows = [
         decode_row("decode_attention_granite_engine", mma, dev, ge["width"],
@@ -1201,12 +2058,34 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
         # gemma2-9b's local layers: a window of 4096 over an 8192-entry
         # cache at head_dim 256; no path runs these widths
         decode_row("decode_attention_window_gemma2_9b",
-                   f"{mma}; sliding window", dev, 4, 2 * gc.window,
-                   gc.n_heads, gc.n_kv_heads, gc.head_dim,
-                   [2 * gc.window, gc.window + 1000, gc.window, 1000],
-                   gc.window, example["launches"]["decode_attention"],
+                   f"{mma}; sliding window", dev, 4, 2 * g9.window,
+                   g9.n_heads, g9.n_kv_heads, g9.head_dim,
+                   [2 * g9.window, g9.window + 1000, g9.window, 1000],
+                   g9.window, example["launches"]["decode_attention"],
                    launches_of="the reduced gemma2 example (head_dim 32, "
                                "window 16), not these widths"),
+        ssd_mlstm_row(dev, sum(wide.values()), wide),
+        flash_noncausal_row(dev, others["whisper-medium"]["launches"]
+                            ["flash non-causal"]),
+        decode_row("decode_attention_cross_whisper",
+                   f"{mma}; the cross cache", dev, WHISPER["batch"],
+                   wc.encoder_len, wc.n_heads, wc.n_kv_heads, wc.head_dim,
+                   [wc.encoder_len] * WHISPER["batch"], None,
+                   whisper["launches"]["decode cross"]),
+        decode_row("decode_attention_self_whisper",
+                   f"{mma}; the decoder's self-attention", dev,
+                   WHISPER["batch"], WHISPER["max_len"], wc.n_heads,
+                   wc.n_kv_heads, wc.head_dim, whisper["lengths"], None,
+                   whisper["launches"]["decode self"]),
+        decode_row("decode_attention_qwen2_moe_engine", mma, dev,
+                   QWEN_ENGINE["width"], QWEN_ENGINE["max_len"], qc.n_heads,
+                   qc.n_kv_heads, qc.head_dim, qwen["lengths"], None,
+                   qwen["launches"]["decode_attention"]),
+        decode_row("decode_attention_internvl2", f"{mma}; 8 query heads a "
+                   "kv head", dev, INTERNVL["batch"], internvl["max_len"],
+                   ic.n_heads, ic.n_kv_heads, ic.head_dim,
+                   internvl["lengths"], None,
+                   internvl["launches"]["decode_attention"]),
     ]
     substrate.clear_tuned_params()
     print(f"lm decode rows: {time.perf_counter() - t1:.1f} s of wall time")
@@ -1494,24 +2373,51 @@ def paper_phase(dev) -> None:
     modules: ``bench_partitions_torch``'s smoke modes (Figs 6-8's
     decisions, predicted against simulated throughput, the Pareto frontier
     against the exhaustive oracle, binding constraints, the fleet-sized
-    frontier and incremental re-plans), ``bench_serving_torch``'s smoke
+    frontier and incremental re-plans, and the DAG-general gate on the
+    branchy MoE layer and enc-dec LM: SP lattice against the DAG-aware
+    oracle, parallel-region splits), ``bench_serving_torch``'s smoke
     (Poisson and bursty traces through the router at the frontier's
     highest-throughput point, goodput within 30% of predicted, a live
     re-plan) and ``bench_query_torch`` in quick mode (the worst query
     under 50 ms).  Their DBs are timed afresh on ``dev`` into a cache of
-    this run's own; any gate failure raises."""
+    this run's own; any gate failure raises, and so does a launch of a
+    hand-written kernel by the zoo's benchmarks, or no flash_attention
+    launch by the DAG gate's enc-dec LM."""
     import shutil
     from benchmarks import bench_partitions_torch as bp
     from benchmarks import bench_query_torch as bq
     from benchmarks import bench_serving_torch as bs
     from benchmarks import common_torch as ct
 
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    def counts():
+        return {"flash_attention": fa_mod.launches,
+                "ssd_scan": ssd_mod.launches,
+                "decode_attention": da_mod.launches}
+
     t0 = time.perf_counter()
     ct.CACHE_ROOT = str(ROOT / "results" / "chip_smoke_benchdb")
     shutil.rmtree(ct.CACHE_ROOT, ignore_errors=True)
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
     rows = bp.smoke(device=dev) + bp.smoke_frontier(device=dev)
     serving = bs.smoke(device=dev)
     rows += bq.run(quick=True, device=dev)
+    zoo_launches = counts()
+    print(f"paper-path launches on the zoo's benchmarks {zoo_launches}")
+    if any(zoo_launches.values()):
+        raise RuntimeError("the paper path's zoo benchmarks launched a "
+                           "hand-written kernel")
+    # the DAG gate's enc-dec LM attends through flash_attention
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    rows += bp.smoke_dag(device=dev)
+    dag_launches = counts()
+    print(f"paper-path launches on the DAG gate {dag_launches}")
+    if not dag_launches["flash_attention"]:
+        raise RuntimeError("the DAG gate's enc-dec LM launched no "
+                           "flash_attention")
     failures = bp.failures() + bs.failures() + bq.run.failures
     for name, us, derived in rows:
         print(f"paper {name},{us:.1f},{derived}")
@@ -1608,15 +2514,9 @@ def main() -> int:
         raise RuntimeError("the zoo path launched a hand-written kernel")
     torch.cuda.empty_cache()
 
-    # the paper's benchmarks, which run the zoo too: no hand-written kernel
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    # the paper's benchmarks: the zoo's launch no hand-written kernel, the
+    # DAG gate's enc-dec LM launches flash_attention (checked inside)
     paper_phase(dev)
-    paper_launches = {"flash_attention": fa_mod.launches,
-                      "ssd_scan": ssd_mod.launches,
-                      "decode_attention": da_mod.launches}
-    print(f"paper-path launches {paper_launches}")
-    if any(paper_launches.values()):
-        raise RuntimeError("the paper path launched a hand-written kernel")
 
     report = []
     for r in kernels:
@@ -1648,7 +2548,10 @@ def main() -> int:
             "call_ms": r["call_ms"],
             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            **({"launches_of": of} if of else {}), **r.get("build", {})})
+            **({"launches_of": of} if of else {}),
+            **({"launches_split": r["launches_split"]}
+               if "launches_split" in r else {}),
+            **r.get("build", {})})
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": report}))

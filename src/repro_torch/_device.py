@@ -21,6 +21,9 @@ import torch
 # ~0.1 ms at the H100's clocks: longer than the host takes to enqueue the
 # start event, one graph launch and the end event
 HOLD_CYCLES = 200_000
+# the longest hold, ~0.4 s: a graph of tens of thousands of nodes (an
+# sLSTM block's 2048 serial steps) takes the host tens of ms to launch
+MAX_HOLD_CYCLES = 4096 * HOLD_CYCLES
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -102,7 +105,7 @@ def replay_seconds(fn, args: tuple, runs: int,
                 end.synchronize()
                 if not early:
                     samples.append(start.elapsed_time(end) / 1e3)
-                elif cycles >= 64 * HOLD_CYCLES:
+                elif cycles >= MAX_HOLD_CYCLES:
                     raise RuntimeError(
                         "replay_seconds: the host still enqueues the replay "
                         f"after a hold of {cycles} cycles")

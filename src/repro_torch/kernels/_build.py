@@ -14,6 +14,7 @@ memory, spills per kernel) is kept beside each library as ``<name>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -143,10 +144,15 @@ def sass_opcodes(name: str) -> dict[str, Counter]:
     """Per kernel (mangled name) of the built ``lib<name>.so``, the number
     of its SASS instructions of each opcode (e.g. ``HMMA``), by the
     opcode's name before the first ``.`` (``cuobjdump -sass``)."""
-    lib = build_all() / f"lib{name}.so"
-    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib)],
+    return parse_sass(_sass_listing(str(build_all() / f"lib{name}.so")))
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_listing(lib: str) -> str:
+    """``cuobjdump -sass`` of a built library, once per path: a build's
+    directory is named by the hash of its sources and never rewritten."""
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib],
                           capture_output=True, text=True, check=True).stdout
-    return parse_sass(sass)
 
 
 def parse_sass(sass: str) -> dict[str, Counter]:

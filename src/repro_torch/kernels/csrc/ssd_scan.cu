@@ -47,6 +47,16 @@
 //   and the instances hold P's n8 tiles as a template parameter (4, 8, 10
 //   or 16).  The workspace (B, H, nc, N, P) fp32 states and (B, H, nc)
 //   decays is the caller's.
+//   Wider heads (P > 128 or N > 64, up to 384 each: the xLSTM's mLSTM runs
+//   P = N = 384) take the wide route, whose chunk is at most 128.  Pass 1
+//   tiles the (N, P) chunk state over the grid, one 64 x 128 tile a CTA.
+//   Pass 3 (ssd_chunk_scan_wide) tiles P over the grid, 128 columns a CTA,
+//   and streams N through shared memory in slabs of 64: per slab the c and
+//   b rows and the S_in rows of its P tile arrive, and each warp adds the
+//   slab's share of c b^T (its m16 row tile's causal scores) and of
+//   c . S_in to accumulators it keeps in registers across the slabs; the
+//   decay mask and the product with x follow once N is summed.  A 384 x
+//   384 fp32 state never sits in one CTA, as the TPU's VMEM holds it.
 // * float32: ssd_kernel, the SIMT kernel (fp32 FMA on the CUDA cores, one
 //   CTA per (batch, head) looping over the chunks with the state in shared
 //   memory), which keeps fp32 products and so the fp32 tolerance of the
@@ -204,6 +214,13 @@ constexpr int kLoadBatch = 8;  // S_in loads in flight per thread
 constexpr int kS4 = 16 * kMaxNK * 8 * kMaxPT / 4 / kMmaThreads;
 constexpr int kPassThreads = 128;
 constexpr int kPassUnroll = 16;  // chunks whose loads run ahead in pass 2
+// the wide route: P tiles of 8 kWidePT columns and N tiles (pass 1) or
+// slabs (pass 3) of kWideN, a chunk of at most kWideMaxChunk (one m16 row
+// tile per warp), P and N up to kMaxWidth
+constexpr int kWidePT = 16;
+constexpr int kWideN = 64;
+constexpr int kWideMaxChunk = 16 * kMmaWarps;
+constexpr int kMaxWidth = 384;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -239,10 +256,33 @@ __host__ __device__ inline Layout scan_layout(int L, int Pp, int Np, bool bx,
   o.total = o.c + (cb ? 0 : 2 * (size_t)L * (Np + 8));
   return o;
 }
+// pass 3 of the wide route: x's P tile, the S_in slab's high and low
+// parts, seg, exp(seg), and the b and c slabs
+__host__ __device__ inline Layout wide_layout(int L) {
+  const size_t sx = 8 * kWidePT + 8, sn = kWideN + 8;
+  Layout o{};
+  o.x = 0;
+  o.sh = o.x + 2 * (size_t)L * sx;
+  o.sl = o.sh + 2 * (size_t)kWideN * sx;
+  o.seg = o.sl + 2 * (size_t)kWideN * sx;
+  o.eseg = o.seg + 4 * (size_t)L;
+  o.b = o.eseg + 4 * (size_t)L;
+  o.c = o.b + 2 * (size_t)L * sn;
+  o.total = o.c + 2 * (size_t)L * sn;
+  return o;
+}
+inline bool wide_route(int P, int N) {
+  return P > 8 * kMaxPT || N > 16 * kMaxNK;
+}
 // kernels/ssd_scan.py smem_bytes() computes the same figure for the
 // autotuner's pruning: the larger of the two passes where b and c have
 // rows of their own; a launch that reads them from x's takes less
 inline size_t chunked_smem(int L, int P, int N) {
+  if (wide_route(P, N)) {
+    const size_t a = state_layout(L, 8 * kWidePT, kWideN, false).total;
+    const size_t b = wide_layout(L).total;
+    return a > b ? a : b;
+  }
   const size_t a = state_layout(L, round16(P), round16(N), false).total;
   const size_t b = scan_layout(L, round16(P), round16(N), false, false).total;
   return a > b ? a : b;
@@ -255,6 +295,9 @@ struct ChunkArgs {
   float* ws;     // (B, H, nc, N, P) states
   float* decay;  // (B, H, nc) exp(total)
   int S, H, P, N, L, Pp, Np, nc;
+  // pass 1's tiles of the (N, P) chunk state: tn x tp (padded widths),
+  // ntiles x ptiles of them; one tile of Np x Pp below the wide route
+  int tp, tn, ptiles, ntiles;
   Strides xs, as, bs, cs, ys;
   int vx, vb, vc;  // rows may be copied as 16-byte pieces
   // b's rows are the first N columns of x's (N a multiple of 16), and c's
@@ -338,28 +381,33 @@ __device__ __forceinline__ void scale_split(unsigned pair, float2 w,
              __uint_as_float(pair & 0xffff0000u) * w.y, h, l);
 }
 
-// Pass 1: the local state of one (chunk, head, batch), s = (b w)^T x.  Warp
-// w computes state rows 16 (w % 4) .. + 15 against one half of P's n8
-// tiles: A = b^T by ldmatrix.trans, scaled by each step's weight in
-// registers and split into high and low parts; B = x by ldmatrix.trans.
-// PT is the n8 tiles the instance holds (P rounded up to 16 <= 8 PT).
+// Pass 1: one tile of the local state of a (chunk, head, batch),
+// s = (b w)^T x: state rows n0 .. n0 + tn - 1 and columns p0 .. p0 + tp - 1
+// (the whole state below the wide route).  Warp w computes tile rows
+// 16 (w % 4) .. + 15 against one half of the tile's n8 tiles: A = b^T by
+// ldmatrix.trans, scaled by each step's weight in registers and split into
+// high and low parts; B = x by ldmatrix.trans.  PT is the n8 tiles the
+// instance holds (tp <= 8 PT).
 template <class A, int PT>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     ssd_chunk_state(const ChunkArgs a) {
   extern __shared__ __align__(16) unsigned char ssd_smem[];
-  const int L = a.L, sx = a.Pp + 8, sn = a.Np + 8;
-  const Layout lo = state_layout(L, a.Pp, a.Np, a.bx);
+  const int L = a.L, sx = a.tp + 8, sn = a.tn + 8;
+  const Layout lo = state_layout(L, a.tp, a.tn, a.bx);
   bf16* Xs = reinterpret_cast<bf16*>(ssd_smem + lo.x);
   float* w = reinterpret_cast<float*>(ssd_smem + lo.seg);
   bf16* Bs = reinterpret_cast<bf16*>(ssd_smem + lo.b);
-  const int ic = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
+  const int tiles = a.ptiles * a.ntiles, tile = blockIdx.x % tiles;
+  const int ic = blockIdx.x / tiles, h = blockIdx.y, bb = blockIdx.z;
   const int t0 = ic * L, rows = min(L, a.S - t0);
+  const int p0 = tile % a.ptiles * a.tp, n0 = tile / a.ptiles * a.tn;
+  const int pw = min(a.tp, a.P - p0), nw = min(a.tn, a.N - n0);
 
-  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h, a.xs.s, t0, rows, L,
-            a.P, a.Pp, a.vx);
+  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h + p0, a.xs.s, t0, rows,
+            L, pw, a.tp, a.vx);
   if (!a.bx)
-    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h, a.bs.s, t0, rows, L,
-              a.N, a.Np, a.vb);
+    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h + n0, a.bs.s, t0, rows,
+              L, nw, a.tn, a.vb);
   cp_async_commit();
   chunk_cumsum(w, static_cast<const A*>(a.la) + bb * a.as.b + h * a.as.h,
                a.as.s, t0, rows, L);
@@ -372,13 +420,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   __syncthreads();
 
   const size_t slice = (size_t)(bb * a.H + h) * a.nc + ic;
-  if (threadIdx.x == 0) a.decay[slice] = expf(total);
+  if (threadIdx.x == 0 && tile == 0) a.decay[slice] = expf(total);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp % 4, pt = a.Pp / 8;
+  const int mt = warp % 4, pt = a.tp / 8;
   const int half = (pt / 2 + 1) / 2 * 2;  // n8 tiles of the first half
   const int n_lo = warp < 4 ? 0 : half, n_hi = warp < 4 ? half : pt;
-  if (mt >= a.Np / 16) return;
+  if (mt >= a.tn / 16) return;
   const bf16* Bu = a.bx ? Xs : Bs;
   const int bstr = a.bx ? sx : sn;
   const unsigned b_base = smem_addr(
@@ -417,7 +465,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       mma_bf16(acc[n + 1], al, xf[n / 2][2], xf[n / 2][3]);
     }
   }
-  float* out = a.ws + slice * a.N * a.P;
+  float* out = a.ws + slice * a.N * a.P + (size_t)n0 * a.P + p0;
 #pragma unroll
   for (int n = 0; n < PT; ++n) {
     if (n < n_lo || n >= n_hi) continue;
@@ -425,7 +473,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int e = 0; e < 4; ++e) {
       const int row = 16 * mt + g + 8 * (e >> 1);
       const int col = n * 8 + 2 * tq + (e & 1);
-      if (row < a.N && col < a.P) out[row * a.P + col] = acc[n][e];
+      if (row < nw && col < pw) out[row * a.P + col] = acc[n][e];
     }
   }
 }
@@ -686,6 +734,206 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
+// Pass 3 of the wide route: the output columns p0 .. p0 + 127 of one
+// (chunk, head, batch).  Warp w owns the m16 row tile w (L <= 128).  N
+// streams through shared memory in slabs of kWideN: per slab, the warp
+// loads its c fragments once and adds c . S_in (high and low parts) to its
+// output accumulators and c b^T to its causal score tiles, both held in
+// registers across the slabs.  Then the output is scaled by exp(seg_i),
+// the scores are decay-masked, split, and multiplied with x's P tile.
+template <class A, int PT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    ssd_chunk_scan_wide(const ChunkArgs a) {
+  static_assert(PT == kWidePT, "wide_layout holds P tiles of 8 kWidePT");
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+  constexpr int TP = 8 * PT, sx = TP + 8, sn = kWideN + 8;
+  constexpr int JT = kWideMaxChunk / 16;  // k16 tiles of j, at most
+  const int L = a.L;
+  const Layout lo = wide_layout(L);
+  bf16* Xs = reinterpret_cast<bf16*>(ssd_smem + lo.x);
+  bf16* Sh = reinterpret_cast<bf16*>(ssd_smem + lo.sh);
+  bf16* Sl = reinterpret_cast<bf16*>(ssd_smem + lo.sl);
+  float* seg = reinterpret_cast<float*>(ssd_smem + lo.seg);
+  float* eseg = reinterpret_cast<float*>(ssd_smem + lo.eseg);
+  bf16* Bs = reinterpret_cast<bf16*>(ssd_smem + lo.b);
+  bf16* Cs = reinterpret_cast<bf16*>(ssd_smem + lo.c);
+  const int ic = blockIdx.x / a.ptiles, h = blockIdx.y, bb = blockIdx.z;
+  const int p0 = blockIdx.x % a.ptiles * TP, pw = min(TP, a.P - p0);
+  const int t0 = ic * L, rows = min(L, a.S - t0);
+  const size_t slice = (size_t)(bb * a.H + h) * a.nc + ic;
+  const float* st = a.ws + slice * a.N * a.P + p0;
+
+  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h + p0, a.xs.s, t0, rows,
+            L, pw, TP, a.vx);
+  cp_async_commit();
+  chunk_cumsum(seg, static_cast<const A*>(a.la) + bb * a.as.b + h * a.as.h,
+               a.as.s, t0, rows, L);
+  // seg in log2 units from here on
+  for (int i = threadIdx.x; i < L; i += kMmaThreads) {
+    seg[i] *= kLog2e;
+    eseg[i] = exp2_approx(seg[i]);
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int mt = warp, i0 = 16 * mt;
+  const bool active = mt < L / 16;
+  const unsigned c_base = smem_addr(
+      Cs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * sn + 8 * (lane >> 4));
+  const unsigned b_base = smem_addr(
+      Bs + ((lane & 7) + 8 * (lane >> 4)) * sn + 8 * ((lane >> 3) & 1));
+  const int to = ((lane & 7) + 8 * ((lane >> 3) & 1)) * sx + 8 * (lane >> 4);
+  const unsigned x_base = smem_addr(Xs + to);
+  const unsigned sh_base = smem_addr(Sh + to), sl_base = smem_addr(Sl + to);
+  const bool v4 = a.P % 4 == 0;
+
+  float acc[PT][4], s[2 * JT][4];
+#pragma unroll
+  for (int n = 0; n < PT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * JT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+  for (int n0 = 0; n0 < a.N; n0 += kWideN) {
+    const int nw = min(kWideN, a.N - n0);
+    __syncthreads();  // the previous slab's readers are done
+    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h + n0, a.bs.s, t0, rows,
+              L, nw, kWideN, a.vb);
+    load_rows(Cs, sn, a.c + bb * a.cs.b + h * a.cs.h + n0, a.cs.s, t0, rows,
+              L, nw, kWideN, a.vc);
+    cp_async_commit();
+    // the S_in rows n0 .. n0 + nw - 1 of the P tile, as high and low parts
+    // (zero past N and past P)
+    if (v4) {
+      for (int idx = threadIdx.x; idx < kWideN * TP / 4; idx += kMmaThreads) {
+        const int n = idx / (TP / 4), p = 4 * (idx % (TP / 4));
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n < nw && p < pw)
+          v = __ldg(reinterpret_cast<const float4*>(
+              st + (size_t)(n0 + n) * a.P + p));
+        unsigned hi[2], lw[2];
+        split_pack(v.x, v.y, hi[0], lw[0]);
+        split_pack(v.z, v.w, hi[1], lw[1]);
+        *reinterpret_cast<uint2*>(Sh + n * sx + p) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(Sl + n * sx + p) = make_uint2(lw[0], lw[1]);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kWideN * TP / 2; idx += kMmaThreads) {
+        const int n = idx / (TP / 2), p = 2 * (idx % (TP / 2));
+        const bool in = n < nw;
+        const float v0 = in && p < pw ? st[(size_t)(n0 + n) * a.P + p] : 0.f;
+        const float v1 =
+            in && p + 1 < pw ? st[(size_t)(n0 + n) * a.P + p + 1] : 0.f;
+        unsigned hi, lw;
+        split_pack(v0, v1, hi, lw);
+        *reinterpret_cast<unsigned*>(Sh + n * sx + p) = hi;
+        *reinterpret_cast<unsigned*>(Sl + n * sx + p) = lw;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (!active) continue;
+    unsigned cf[kWideN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWideN / 16; ++kk)
+      ldsm_x4(c_base + (i0 * sn + kk * 16) * sizeof(bf16), cf[kk]);
+    // inter-chunk: c_i . S_in over this slab
+#pragma unroll
+    for (int kk = 0; kk < kWideN / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < PT; n += 2) {
+        unsigned sh[4], sl[4];
+        const unsigned off = (kk * 16 * sx + n * 8) * sizeof(bf16);
+        ldsm_x4_trans(sh_base + off, sh);
+        ldsm_x4_trans(sl_base + off, sl);
+        mma_bf16(acc[n], cf[kk], sh[0], sh[1]);
+        mma_bf16(acc[n], cf[kk], sl[0], sl[1]);
+        mma_bf16(acc[n + 1], cf[kk], sh[2], sh[3]);
+        mma_bf16(acc[n + 1], cf[kk], sl[2], sl[3]);
+      }
+    }
+    // scores: c_i . b_j over this slab, for the j tiles at or below the
+    // diagonal
+#pragma unroll
+    for (int jt = 0; jt < JT; ++jt) {
+      if (jt > mt) continue;
+#pragma unroll
+      for (int kk = 0; kk < kWideN / 16; ++kk) {
+        unsigned bfr[4];
+        ldsm_x4(b_base + (jt * 16 * sn + kk * 16) * sizeof(bf16), bfr);
+        mma_bf16(s[2 * jt], cf[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * jt + 1], cf[kk], bfr[2], bfr[3]);
+      }
+    }
+  }
+  if (!active) return;
+
+  const float seg_i[2] = {seg[i0 + g], seg[i0 + g + 8]};  // log2 units
+  const float e0 = eseg[i0 + g], e1 = eseg[i0 + g + 8];
+#pragma unroll
+  for (int n = 0; n < PT; ++n) {
+    acc[n][0] *= e0;
+    acc[n][1] *= e0;
+    acc[n][2] *= e1;
+    acc[n][3] *= e1;
+  }
+  // intra-chunk: the decay-masked scores times x
+#pragma unroll
+  for (int jt = 0; jt < JT; ++jt) {
+    if (jt > mt) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int j0 = 16 * jt + 8 * j + 2 * tq;
+      const float seg_j[2] = {seg[j0], seg[j0 + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + 8 * (e >> 1);
+        s[2 * jt + j][e] =
+            j0 + (e & 1) <= i
+                ? s[2 * jt + j][e] * exp2_approx(seg_i[e >> 1] - seg_j[e & 1])
+                : 0.f;
+      }
+    }
+    unsigned ah[4], al[4];
+    split_pack(s[2 * jt][0], s[2 * jt][1], ah[0], al[0]);
+    split_pack(s[2 * jt][2], s[2 * jt][3], ah[1], al[1]);
+    split_pack(s[2 * jt + 1][0], s[2 * jt + 1][1], ah[2], al[2]);
+    split_pack(s[2 * jt + 1][2], s[2 * jt + 1][3], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < PT; n += 2) {
+      unsigned xf[4];
+      ldsm_x4_trans(x_base + (jt * 16 * sx + n * 8) * sizeof(bf16), xf);
+      mma_bf16(acc[n], ah, xf[0], xf[1]);
+      mma_bf16(acc[n], al, xf[0], xf[1]);
+      mma_bf16(acc[n + 1], ah, xf[2], xf[3]);
+      mma_bf16(acc[n + 1], al, xf[2], xf[3]);
+    }
+  }
+
+  bf16* yb = a.y + bb * a.ys.b + h * a.ys.h + p0;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = i0 + g + 8 * rr;
+    if (i >= rows) continue;
+    bf16* yrow = yb + (long long)(t0 + i) * a.ys.s;
+#pragma unroll
+    for (int n = 0; n < PT; ++n) {
+      const int col = n * 8 + 2 * tq;
+      if (col + 1 < pw && (a.P & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
+            __floats2bfloat162_rn(acc[n][2 * rr], acc[n][2 * rr + 1]);
+      } else {
+        if (col < pw) yrow[col] = __float2bfloat16(acc[n][2 * rr]);
+        if (col + 1 < pw)
+          yrow[col + 1] = __float2bfloat16(acc[n][2 * rr + 1]);
+      }
+    }
+  }
+}
+
 // whether rows of width `width` of a bf16 tensor at `p` with these
 // strides may be copied as 16-byte pieces
 inline int rows_vec(const void* p, Strides s, int width) {
@@ -696,21 +944,30 @@ inline bool same(Strides u, Strides v) {
   return u.b == v.b && u.s == v.s && u.h == v.h;
 }
 
-template <class A, int PT>
+// the three passes; Wide picks pass 3's wide instance
+template <class A, int PT, bool Wide = false>
 int launch_chunked(const ChunkArgs& a, int B, float* fin,
                    cudaStream_t stream) {
-  const size_t s1 = state_layout(a.L, a.Pp, a.Np, a.bx).total;
-  const size_t s3 = scan_layout(a.L, a.Pp, a.Np, a.bx, a.cb).total;
+  void (*scan)(const ChunkArgs);
+  size_t s3;
+  if constexpr (Wide) {
+    scan = ssd_chunk_scan_wide<A, PT>;
+    s3 = wide_layout(a.L).total;
+  } else {
+    scan = ssd_chunk_scan<A, PT>;
+    s3 = scan_layout(a.L, a.Pp, a.Np, a.bx, a.cb).total;
+  }
+  const size_t s1 = state_layout(a.L, a.tp, a.tn, a.bx).total;
   cudaError_t e = cudaFuncSetAttribute(
       ssd_chunk_state<A, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s1);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ssd_chunk_scan<A, PT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)s3);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.nc, a.H, B);
-  ssd_chunk_state<A, PT><<<grid, kMmaThreads, s1, stream>>>(a);
+  ssd_chunk_state<A, PT>
+      <<<dim3(a.nc * a.ptiles * a.ntiles, a.H, B), kMmaThreads, s1, stream>>>(
+          a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int NP = a.N * a.P;
@@ -719,7 +976,8 @@ int launch_chunked(const ChunkArgs& a, int B, float* fin,
                                               NP);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_chunk_scan<A, PT><<<grid, kMmaThreads, s3, stream>>>(a);
+  const dim3 grid(Wide ? a.nc * a.ptiles : a.nc, a.H, B);
+  scan<<<grid, kMmaThreads, s3, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -728,6 +986,8 @@ int launch_chunked(const ChunkArgs& a, int B, float* fin,
 template <class A>
 int launch_chunked_p(const ChunkArgs& a, int B, float* fin,
                      cudaStream_t stream) {
+  if (wide_route(a.P, a.N))
+    return launch_chunked<A, kWidePT, true>(a, B, fin, stream);
   if (a.Pp <= 32) return launch_chunked<A, 4>(a, B, fin, stream);
   if (a.Pp <= 64) return launch_chunked<A, 8>(a, B, fin, stream);
   if (a.Pp <= 80) return launch_chunked<A, 10>(a, B, fin, stream);
@@ -762,8 +1022,14 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
   a.vx = rows_vec(x, a.xs, P);
   a.vb = rows_vec(bm, a.bs, N);
   a.vc = rows_vec(cm, a.cs, N);
-  a.bx = bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
-  a.cb = cm == bm && same(a.cs, a.bs);
+  const bool wide = wide_route(P, N);
+  a.tp = wide ? 8 * kWidePT : a.Pp;
+  a.tn = wide ? kWideN : a.Np;
+  a.ptiles = (a.Pp + a.tp - 1) / a.tp;
+  a.ntiles = (a.Np + a.tn - 1) / a.tn;
+  // the wide route copies b and c slab by slab from their own pointers
+  a.bx = !wide && bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
+  a.cb = !wide && cm == bm && same(a.cs, a.bs);
   return la_dtype == kFloat32 ? launch_chunked_p<float>(a, B, fin, stream)
                               : launch_chunked_p<bf16>(a, B, fin, stream);
 }
@@ -777,7 +1043,8 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
 // the dtype code `la_dtype`.  strides: 15 element strides, (batch,
 // sequence, head) for x, log_a, b, c, y in that order; y is contiguous.
 // chunk is the chunk length L: for float32 at least 1; for bfloat16 a
-// multiple of 16 up to 256, with P <= 128 and N <= 64, and workspace holds
+// multiple of 16 up to 256 with P <= 128 and N <= 64, or up to 128 with P
+// and N up to 384 (the wide route), and workspace holds
 // B * H * nc * (N * P + 1) floats, nc = ceil(S / L) (float32 reads none).
 // smem_bytes is the caller's footprint figure and must equal this file's.
 // Returns a cudaError_t code (0 on success).
@@ -803,7 +1070,8 @@ extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
                : launch_simt<bf16>(x, log_a, b, c, y, fin, B, S, H, P, N,
                                    strides, L, smem, s);
   }
-  if (L % 16 || L > kMaxChunk || P > 8 * kMaxPT || N > 16 * kMaxNK ||
+  if (L % 16 || L > kMaxChunk || P > kMaxWidth || N > kMaxWidth ||
+      (wide_route(P, N) && L > kWideMaxChunk) ||
       (long long)chunked_smem(L, P, N) != smem_bytes)
     return (int)cudaErrorInvalidValue;
   return launch_chunked_all(x, log_a, b, c, y, fin,

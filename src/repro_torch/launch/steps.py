@@ -1,5 +1,5 @@
-"""Step functions (prefill / decode) and the dense model's parameter and
-FLOP counts: the port of ``repro/launch/steps.py``.
+"""Step functions (prefill / decode) and the models' parameter and FLOP
+counts: the port of ``repro/launch/steps.py``.
 
 The reference's factories also take the sharding rules and the mesh, and
 the module builds input specs and shardings for the production mesh; those
@@ -17,11 +17,14 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import build_model
 from ..models import layers as L
+from ..models.moe import pad_experts
 
 
 def make_prefill_step(model):
     def prefill_step(params, cache, batch):
         kw = {}
+        if "frames" in batch:
+            kw["frames"] = batch["frames"]
         if "patch_embeds" in batch:
             kw["patch_embeds"] = batch["patch_embeds"]
         return model.prefill(params, batch["tokens"], cache, **kw)
@@ -40,7 +43,7 @@ def make_decode_step(model):
 
 
 # ---------------------------------------------------------------------------
-# MODEL_FLOPS (the roofline's "useful work" yardstick), dense models
+# MODEL_FLOPS (the roofline's "useful work" yardstick)
 # ---------------------------------------------------------------------------
 
 def count_params(cfg: ModelConfig) -> int:
@@ -48,14 +51,20 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(math.prod(p.shape) for p in L.tree_leaves(spec))
 
 
-def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
-    """6·N·D for training, 2·N·D for inference.  MoE configs (whose N is
-    the active count) wait for the port of ``moe.py``."""
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FLOPs wait for the port of moe.py "
-            "(ROADMAP.md Queue 1)")
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters one token meets: an MoE layer's experts beyond its top-k
+    (the padded experts included) do not count."""
     n = count_params(cfg)
+    if cfg.moe_experts:
+        E = pad_experts(cfg.moe_experts)
+        inactive = (E - cfg.moe_top_k) * 3 * cfg.d_model * cfg.d_ff
+        n -= inactive * cfg.n_layers // len(cfg.pattern)
+    return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6·N·D for training, 2·N·D for inference (MoE: N_active)."""
+    n = count_active_params(cfg)
     if shape.kind == "train":
         return 6.0 * n * shape.global_batch * shape.seq_len
     if shape.kind == "prefill":

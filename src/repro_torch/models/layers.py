@@ -60,18 +60,22 @@ class Pm:
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` over the leaves of a dict tree (a spec's :class:`Pm` s, or
-    tensors)."""
+    """``fn`` over the leaves of a tree of dicts and tuples (a spec's
+    :class:`Pm` s, or tensors; the sLSTM's cache state is a tuple)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def tree_leaves(tree: Any) -> list:
-    """The leaves of a dict tree, in sorted key order (the reference's
-    pytree order)."""
+    """The leaves of a tree of dicts and tuples, dicts in sorted key order
+    and tuples in positional order (the reference's pytree order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -266,10 +270,19 @@ def sdpa(q, k, v, *, q_pos, k_pos, causal=True, window=None, softcap=None,
     return o.to(q.dtype)
 
 
+def matmul(a, b):
+    """``a @ b`` in the wider of their dtypes, as JAX promotes a bf16
+    activation times fp32 weights (the encoder-decoder's encoder starts in
+    bf16 whatever the parameters' dtype); no copy when they agree."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def _project(x, w):
     """``einsum("bsd,d...->bs...", x, w)`` as one matrix product."""
     B, S, D = x.shape
-    return (x.reshape(B * S, D) @ w.reshape(D, -1)).view(B, S, *w.shape[1:])
+    return matmul(x.reshape(B * S, D), w.reshape(D, -1)).view(
+        B, S, *w.shape[1:])
 
 
 def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
@@ -339,7 +352,7 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
                                softcap=softcap, window=window)[:, None]
 
     H, hd = out.shape[2], out.shape[3]
-    y = out.reshape(B * S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    y = matmul(out.reshape(B * S, H * hd), p["wo"].reshape(H * hd, -1))
     return y.view(B, S, -1), kv_cache
 
 
@@ -368,12 +381,12 @@ _ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="tanh"),
 
 def mlp(p, x, activation: str = "gelu"):
     act = _ACTIVATIONS[activation]
-    h = x @ p["w_up"]
+    h = matmul(x, p["w_up"])
     if "w_gate" in p:
-        h = act(x @ p["w_gate"]) * h
+        h = act(matmul(x, p["w_gate"])) * h
     else:
         h = act(h)
-    return h @ p["w_down"]
+    return matmul(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------

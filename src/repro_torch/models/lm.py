@@ -13,8 +13,10 @@ Execution modes:
 * ``prefill``      — full sequence from position 0, fills the caches,
 * ``decode_step``  — one token per row against the caches.
 
-The sub-layer kinds ``moe``, ``mlstm`` and ``slstm`` are not ported yet
-(``ROADMAP.md`` Queue 1).
+``aux`` is the MoE layers' Switch load-balancing loss summed over the
+stack (0.0 without MoE layers).  The sLSTM's state starts differently by
+entry point, as in the reference: ``forward`` passes none (its stabiliser
+starts at -1e9), ``prefill`` the zeroed cache (0).
 """
 
 from __future__ import annotations
@@ -24,9 +26,13 @@ import torch
 from .._device import resolve_device
 from ..core.graph import TensorSpec
 from . import layers as L
+from .moe import moe, moe_spec
 from .ssm import mamba2, mamba2_spec, mamba2_state_specs
+from .xlstm import (mlstm, mlstm_spec, mlstm_state_specs, slstm, slstm_spec,
+                    slstm_state_specs)
 
-PORTED_KINDS = frozenset({"attn", "attn_local", "mlp", "mamba2"})
+KINDS = frozenset({"attn", "attn_local", "mlp", "moe", "mamba2", "mlstm",
+                   "slstm"})
 
 
 # ---------------------------------------------------------------------------
@@ -49,8 +55,17 @@ def _sub_spec(cfg, kind: str) -> dict:
         if cfg.post_block_norm:
             s["post_norm"] = norm_spec
         return s
+    if kind == "moe":
+        return {"norm": norm_spec,
+                "moe": moe_spec(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                                n_shared=1 if cfg.moe_shared_dff else 0,
+                                d_shared=cfg.moe_shared_dff)}
     if kind == "mamba2":
         return {"norm": norm_spec, "core": mamba2_spec(cfg)}
+    if kind == "mlstm":
+        return {"norm": norm_spec, "core": mlstm_spec(cfg)}
+    if kind == "slstm":
+        return {"core": slstm_spec(cfg)}
     raise ValueError(kind)
 
 
@@ -81,21 +96,41 @@ def apply_sublayer(cfg, kind, p, x, *, positions, cache, cache_len, mode):
             h = normf(p["post_norm"], h)
         return x + h, None, 0.0
 
-    if kind == "mamba2":
+    if kind == "moe":
         h = normf(p["norm"], x)
-        # a prefill from offset 0 starts from the zero state: passing none
-        # skips the initial state's terms, which add zeros
-        fresh = mode == "prefill" and isinstance(cache_len, int) and \
-            cache_len == 0
+        h, aux = moe(p["moe"], h, top_k=cfg.moe_top_k,
+                     n_experts=cfg.moe_experts,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     activation=cfg.activation,
+                     group_size=cfg.moe_group_size, impl=cfg.moe_impl)
+        return x + h, None, aux
+
+    # a prefill from offset 0 starts from the zero state: passing none
+    # skips an SSD initial state's terms, which add zeros
+    fresh = mode == "prefill" and isinstance(cache_len, int) and \
+        cache_len == 0
+    if kind in ("mamba2", "mlstm"):
+        h = normf(p["norm"], x)
+        core, key = (mamba2, "ssm") if kind == "mamba2" else (mlstm, "mat")
         st = {} if fresh or cache is None else cache
-        h, (ssm_st, conv_st) = mamba2(p["core"], cfg, h,
-                                      state=st.get("ssm"),
-                                      conv_state=st.get("conv"),
-                                      decode=(mode == "decode"))
+        h, (ssm_st, conv_st) = core(p["core"], cfg, h, state=st.get(key),
+                                    conv_state=st.get("conv"),
+                                    decode=(mode == "decode"))
         if cache is not None and mode != "train":
-            cache["ssm"].copy_(ssm_st)
+            cache[key].copy_(ssm_st)
             cache["conv"].copy_(conv_st)
         return x + h, cache, 0.0
+
+    if kind == "slstm":
+        # the state is passed even from a zeroed cache: its stabiliser then
+        # starts at 0, not at forward's -1e9 (the reference's semantics)
+        x, new_st = slstm(p["core"], cfg, x,
+                          state=None if cache is None else cache["s"],
+                          decode=(mode == "decode"))
+        if cache is not None and mode != "train":
+            for dst, src in zip(cache["s"], new_st):
+                dst.copy_(src)
+        return x, cache, 0.0
 
     raise ValueError(kind)
 
@@ -108,6 +143,11 @@ def _sub_cache_spec(cfg, kind: str, batch: int, max_len: int):
     if kind == "mamba2":
         ssm, conv = mamba2_state_specs(cfg, batch)
         return {"ssm": ssm, "conv": conv}
+    if kind == "mlstm":
+        mat, conv = mlstm_state_specs(cfg, batch)
+        return {"mat": mat, "conv": conv}
+    if kind == "slstm":
+        return {"s": slstm_state_specs(cfg, batch)}
     return None
 
 
@@ -128,11 +168,9 @@ class DecoderLM:
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.kinds = list(cfg.group_kinds)
-        missing = sorted(set(self.kinds) - PORTED_KINDS)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: sub-layer kinds {missing} are not ported to "
-                "repro_torch yet (ROADMAP.md Queue 1)")
+        unknown = sorted(set(self.kinds) - KINDS)
+        if unknown:
+            raise ValueError(f"{cfg.name}: unknown sub-layer kinds {unknown}")
         self.sub_names = [f"s{i}_{k}" for i, k in enumerate(self.kinds)]
         self.device = resolve_device(device)
 
@@ -190,11 +228,13 @@ class DecoderLM:
     # -- stack ---------------------------------------------------------------
     def _apply_group(self, params_g, shared, x, cache_g, *, positions,
                      cache_len, mode):
+        aux = 0.0
         for n, k in zip(self.sub_names, self.kinds):
             c = cache_g.get(n) if cache_g else None
-            x, _, _ = apply_sublayer(self.cfg, k, params_g[n], x,
+            x, _, a = apply_sublayer(self.cfg, k, params_g[n], x,
                                      positions=positions, cache=c,
                                      cache_len=cache_len, mode=mode)
+            aux = aux + a
         if shared is not None:
             normf = _norm(self.cfg)
             h = normf(shared["norm1"], x)
@@ -205,16 +245,18 @@ class DecoderLM:
             x = x + h
             h = normf(shared["norm2"], x)
             x = x + L.mlp(shared["mlp"], h, activation=self.cfg.activation)
-        return x, cache_g, 0.0
+        return x, cache_g, aux
 
     def _stack(self, params, x, caches, *, positions, cache_len, mode):
         shared = params.get("shared_block")
+        aux = 0.0
         for gi in range(self.cfg.n_groups):
             cg = None if caches is None else _index(caches, gi)
-            x, _, _ = self._apply_group(_index(params["layers"], gi), shared,
+            x, _, a = self._apply_group(_index(params["layers"], gi), shared,
                                         x, cg, positions=positions,
                                         cache_len=cache_len, mode=mode)
-        return x, caches, 0.0
+            aux = aux + a
+        return x, caches, aux
 
     # -- entry points ---------------------------------------------------------
     def _embed_inputs(self, params, tokens, patch_embeds=None):
@@ -225,7 +267,8 @@ class DecoderLM:
         return x
 
     def forward(self, params, tokens, patch_embeds=None):
-        """Full-sequence pass -> (final hidden states, aux)."""
+        """Full-sequence pass -> (final hidden states, aux): the MoE
+        layers' load-balancing loss, summed."""
         x = self._embed_inputs(params, tokens, patch_embeds)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]
@@ -234,8 +277,8 @@ class DecoderLM:
         return _norm(self.cfg)(params["final_norm"], x), aux
 
     def prefill(self, params, tokens, cache, patch_embeds=None):
-        """Fill caches with the prompt from position 0, Mamba-2 states from
-        zero; returns (last_logits, caches)."""
+        """Fill caches with the prompt from position 0, recurrent states
+        from the (zeroed) cache; returns (last_logits, caches)."""
         x = self._embed_inputs(params, tokens, patch_embeds)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]

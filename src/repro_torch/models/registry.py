@@ -7,6 +7,7 @@ from typing import TYPE_CHECKING, Callable
 
 import torch
 
+from .encdec import EncDecLM
 from .lm import DecoderLM
 
 if TYPE_CHECKING:  # avoid a circular import at runtime (configs import us)
@@ -37,11 +38,7 @@ def get_config(name: str) -> "ModelConfig":
     return _CONFIGS[name]()
 
 
-def build_model(cfg, device: str | torch.device = "cuda") -> DecoderLM:
-    """The model of ``cfg`` on ``device``.  Encoder-decoder configs wait for
-    the port of ``encdec.py`` (ROADMAP.md Queue 1)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder LM is not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1)")
-    return DecoderLM(cfg, device)
+def build_model(cfg, device: str | torch.device = "cuda"
+                ) -> DecoderLM | EncDecLM:
+    """The model of ``cfg`` on ``device``."""
+    return EncDecLM(cfg, device) if cfg.is_encdec else DecoderLM(cfg, device)

@@ -192,23 +192,41 @@ def test_partitions_smoke_modes_match_reference(analytic, mode):
 
 
 def test_partitions_run_matches_reference_without_the_dag_scenario(
-        analytic, monkeypatch, capsys):
-    """``run(quick=True)``: every scenario but the DAG one, which the port
-    leaves out and says so."""
+        analytic, monkeypatch):
+    """``run(quick=True)``: every scenario but the DAG one, which both
+    packages run last and test_dag_scenario_matches_reference compares."""
     monkeypatch.setattr(jbp, "scenario_dag", lambda quick=True: [])
+    monkeypatch.setattr(tbp, "scenario_dag",
+                        lambda quick=True, device="cuda": [])
     want = jbp.run(quick=True)
     got = tbp.run(quick=True, device="cpu")
     assert _decisions(got) == _decisions(want)
-    assert "DAG-general partitioning" in capsys.readouterr().out
     assert not any(name.startswith("dag") for name, _, _ in got)
 
 
-def test_perf_gate_runs_the_chain_frontier_gates(analytic, capsys):
+def test_dag_scenario_matches_reference(analytic):
+    """``scenario_dag`` (``--smoke-dag``): the MoE layer and the reduced
+    enc-dec LM of each package, fused as block DAGs and priced by the
+    analytic provider from the adapters' equal FLOPs and bytes; every
+    decision, frontier size, split count and gate verdict equal."""
+    want = jbp.scenario_dag(quick=True)
+    got = tbp.smoke_dag(device="cpu")
+    assert _decisions(got) == _decisions(want)
+    assert [name for name, _, _ in got] == [name for name, _, _ in want]
+    assert tbp.scenario_dag.failures == jbp.scenario_dag.failures == []
+    assert dict((n, d) for n, _, d in got)["dag/split_points"] > 0
+
+
+def test_perf_gate_runs_the_chain_frontier_gates(analytic):
+    """The chain frontier gates on MobileNetV2, after the SP solve and
+    frontier gates on the DAG graphs, as the reference's perf gate."""
     rows = tbp.perf_gate(reps=2, device="cpu")
-    assert [name for name, _, _ in rows] == [
-        f"gate/front_chain/{net}/MobileNetV2"
-        for net in ("3g", "4g", "wired")]
-    assert "waits" in capsys.readouterr().out
+    names = [name for name, _, _ in rows]
+    assert names[-3:] == [f"gate/front_chain/{net}/MobileNetV2"
+                          for net in ("3g", "4g", "wired")]
+    assert names == [name for name, _, _ in jbp.perf_gate(reps=2)]
+    assert any(name.startswith("gate/dag_sp/") for name in names)
+    assert any(name.startswith("gate/front_dag/") for name in names)
 
 
 def test_serving_smoke_matches_reference(analytic):

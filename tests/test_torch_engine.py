@@ -5,9 +5,11 @@ The model is test_serving.py's: granite-8b cut to 2 layers, d_model 64, 4
 query heads over 2 kv heads of head_dim 16, vocab 128, in fp32 on the CPU
 (the kernels' plain versions).  The JAX model draws the parameters and
 ``convert.to_torch`` carries them over, so in fp32 the two engines' greedy
-tokens are equal token for token: on the bucketed path (granite-8b) and on
-the exact path (a reduced zamba2-2.7b, Mamba-2 with a shared attention
-block).  The port's prefill writes the bucketed path's scratch cache in
+tokens are equal token for token: on the bucketed path (granite-8b, and
+the MoE models qwen2-moe-a2.7b and granite-moe-3b-a800m cut to 8 experts,
+top-2, groups of 64) and on the exact path (a reduced zamba2-2.7b, Mamba-2
+with a shared attention block, and a reduced xlstm-125m, mLSTM and
+sLSTM).  The port's prefill writes the bucketed path's scratch cache in
 place; two admission ticks whose buckets differ must still give the tokens
 of one-at-a-time greedy decoding.
 """
@@ -36,6 +38,14 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 ZAMBA = dict(n_layers=12, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
              d_ff=128, vocab=128, ssm_state=8, ssm_head_dim=8, ssm_chunk=4,
              remat=False, q_chunk=32, loss_seq_chunk=None)
+
+MOE = dict(SMALL, moe_experts=8, moe_top_k=2, moe_group_size=64)
+XLSTM = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+             d_ff=0, vocab=128, ssm_chunk=4, remat=False, q_chunk=32,
+             loss_seq_chunk=None)
+OVERRIDES = {"zamba2-2.7b": ZAMBA, "xlstm-125m": XLSTM,
+             "qwen2-moe-a2.7b": dict(MOE, moe_shared_dff=64),
+             "granite-moe-3b-a800m": MOE}
 
 
 def _pair(arch, overrides):
@@ -152,21 +162,25 @@ def _serve(engine_cls, request_cls, model, params, prompts, n_new, **kw):
     return eng, [r.tokens for r in sorted(eng.run(), key=lambda r: r.rid)]
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b", "granite-moe-3b-a800m",
+                                  "xlstm-125m"])
 def test_tokens_equal_the_jax_engine(arch, small_model):
     """fp32: the port's engine yields the JAX engine's tokens, on the
-    bucketed path (granite-8b) and the exact one (zamba2-2.7b)."""
+    bucketed path (granite-8b, the MoE models) and the exact one
+    (zamba2-2.7b, xlstm-125m)."""
     _, model, params, jmodel, jparams = small_model if arch == "granite-8b" \
-        else _pair(arch, ZAMBA)
+        else _pair(arch, OVERRIDES[arch])
     rng = np.random.default_rng(4)
-    # zamba2's exact prefill keeps to S % min(chunk, S) == 0
-    lens = (3, 9, 5, 12) if arch == "granite-8b" else (4, 8, 12, 8)
+    exact = arch in ("zamba2-2.7b", "xlstm-125m")
+    # the exact prefill keeps to S % min(chunk, S) == 0
+    lens = (4, 8, 12, 8) if exact else (3, 9, 5, 12)
     prompts = [rng.integers(0, model.cfg.vocab, n) for n in lens]
     eng, got = _serve(ServingEngine, Request, model, params, prompts, 6,
                       width=2, max_len=32)
     _, want = _serve(JaxEngine, JaxRequest, jmodel, jparams, prompts, 6,
                      width=2, max_len=32)
-    assert (eng.prompt_buckets is None) == (arch == "zamba2-2.7b")
+    assert (eng.prompt_buckets is None) == exact
     assert got == want
 
 
@@ -196,3 +210,15 @@ def test_warmup_changes_no_engine_state(small_model):
     assert len(eng.queue) == 1 and not eng.active
     assert "mamba2" in RECURRENT_KINDS
 
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "qwen2-moe-a2.7b"])
+def test_serve_cli_serves_the_new_families_on_the_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch <arch> --device cpu``:
+    the tiny xLSTM (exact admission) and MoE (bucketed) models serve every
+    request."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 9 tokens" in out

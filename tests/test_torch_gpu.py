@@ -67,6 +67,9 @@ FLASH_CASES = [  # B, Sq, Sk, H, Hk, hd, causal, window, softcap, bq, bk
     (1, 384, 200, 4, 2, 64, True, None, None, 128, 128),
     (1, 130, 257, 4, 2, 64, True, None, None, 64, 128),
     (1, 640, 640, 32, 32, 80, True, None, None, 128, 128),    # zamba2 heads
+    (2, 4, 1500, 16, 16, 64, False, None, None, 128, 128),    # whisper cross
+    (1, 1500, 1500, 16, 16, 64, False, None, None, 128, 128),  # its encoder
+    (2, 37, 300, 4, 2, 64, False, None, None, 64, 128),       # Sq < Sk
 ]
 # the bf16 route only: every autotuner candidate at zamba2's heads, Sq
 # that is no multiple of 16 (block_q rounds up to 160 and 224 rows),
@@ -207,6 +210,34 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
     _close(fin, fin_ref, SSD_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 512, 4, 384, 384, 128),                 # the mLSTM's widths
+    (2, 300, 2, 200, 136, 64),                  # ragged tiles of P and N
+    (1, 257, 2, 48, 96, 128),                   # wide by N alone
+    (1, 100, 2, 160, 32, 32),                   # wide by P alone
+])
+@pytest.mark.parametrize("la_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bf16_wide_route_matches_plain(cuda, B, S, H, P, N, chunk,
+                                                la_dtype):
+    """P > 128 or N > 64: pass 1 tiled over the state, pass 3 streaming N
+    in slabs of 64 over P tiles of 128."""
+    rng = np.random.default_rng(12)
+    x = _randn(rng, (B, S, H, P), torch.bfloat16, cuda)
+    log_a = -torch.nn.functional.softplus(
+        _randn(rng, (B, S, H), torch.float32, cuda)).to(la_dtype)
+    b = (_randn(rng, (B, S, H, N), torch.float32, cuda) / N ** 0.5).to(
+        torch.bfloat16)
+    c = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
+    before = ssd_mod.launches
+    y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1
+    y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
+                             chunk=chunk)
+    _close(y, y_ref, SSD_TOL[torch.bfloat16])
+    _close(fin, fin_ref, SSD_TOL[torch.float32])
+
+
 def test_ssd_scan_takes_strided_b_c(cuda):
     """The node passes b = c = x[..., :N], a strided view of x."""
     rng = np.random.default_rng(3)
@@ -255,10 +286,12 @@ def test_ssd_scan_bf16_every_chunk_at_zamba2_widths(cuda, chunk):
 
 
 def test_ssd_scan_bf16_refuses_what_it_does_not_take(cuda):
-    """The bf16 passes take chunk <= 256, P <= 128 and N <= 64; they never
-    hand another shape to the plain version or the fp32 kernel."""
+    """The bf16 passes take chunk <= 256 with P <= 128 and N <= 64, or
+    chunk <= 128 with P and N up to 384; they never hand another shape to
+    the plain version or the fp32 kernel."""
     before = ssd_mod.launches
-    for P, N, chunk in ((136, 16, 64), (64, 72, 64), (64, 16, 512)):
+    for P, N, chunk in ((392, 16, 64), (64, 392, 64), (64, 16, 512),
+                        (136, 16, 256), (384, 384, 256)):
         x = torch.zeros((1, 1024, 1, P), device=cuda, dtype=torch.bfloat16)
         b = torch.zeros((1, 1024, 1, N), device=cuda, dtype=torch.bfloat16)
         la = torch.zeros((1, 1024, 1), device=cuda)
@@ -274,12 +307,38 @@ def test_ssd_scan_bf16_kernels_use_tensor_cores_without_spills(cuda):
     ptxas = ssd_mod.mma_passes(_build.ptxas_report("ssd_scan"))
     counts = {f: c["HMMA"] for f, c in _build.sass_opcodes("ssd_scan").items()}
     hmma = ssd_mod.mma_passes(counts)
-    assert sorted(hmma) == ["ssd_chunk_scan", "ssd_chunk_state"], counts
+    assert sorted(hmma) == ["ssd_chunk_scan", "ssd_chunk_scan_wide",
+                            "ssd_chunk_state"], counts
     assert all(n > 0 for ns in hmma.values() for n in ns), counts
     assert all(e["spill_stores"] == 0 for es in ptxas.values() for e in es), \
         ptxas
     simt = [n for f, n in counts.items() if "ssd_kernel" in f]
     assert simt and not any(simt), counts
+
+
+def test_ssd_scan_mlstm_widths_bf16_and_fp32_refusal(cuda):
+    """xlstm-125m's mLSTM: x = v i, b = k, c = q at 4 heads of 384, log_a
+    = log sigmoid(f) in fp32, chunk 128; the bf16 wide route against the
+    plain version, and the fp32 route, which cannot hold these widths,
+    refusing them without a launch."""
+    rng = np.random.default_rng(11)
+    shape = (2, 1024, 4, 384)
+    v, k, q = (_randn(rng, shape, torch.bfloat16, cuda) for _ in range(3))
+    k = (k.float() / 384 ** 0.5).to(torch.bfloat16)
+    f, i = (_randn(rng, shape[:3], torch.float32, cuda) for _ in range(2))
+    x = v * torch.sigmoid(i)[..., None].to(torch.bfloat16)
+    la = torch.nn.functional.logsigmoid(f)
+    before, wide_before = ssd_mod.launches, ssd_mod.wide_launches
+    y, fin = ssd_mod.ssd_scan(x, la, k, q, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1
+    assert ssd_mod.wide_launches == wide_before + 1
+    y_ref, fin_ref = ssd_ref(x.float(), la, k.float(), q.float(), chunk=128)
+    _close(y, y_ref, SSD_TOL[torch.bfloat16])
+    _close(fin, fin_ref, SSD_TOL[torch.float32])
+    with pytest.raises(ValueError, match="fp32 kernel.*shared memory"):
+        ssd_mod.ssd_scan(x.float(), la, k.float(), q.float(), chunk=128)
+    assert ssd_mod.launches == before + 1
 
 
 def test_ssd_scan_refuses_oversized_chunk(cuda):
@@ -346,6 +405,20 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Smax, H, Hk, hd,
         assert got.dtype == dtype and got.shape == q.shape
         _close(got, want, TOL[dtype])
         assert (got[lengths == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_whisper_cross_cache(cuda, dtype):
+    """whisper-medium's cross-attention in decode: every row reads the
+    whole 1500-entry cross cache (16 heads of 64, width 8)."""
+    q, k, v, _ = _decode_inputs(15, 8, 1500, 16, 16, 64, dtype, cuda)
+    lengths = torch.full((8,), 1500, dtype=torch.int32, device=cuda)
+    before = da_mod.launches
+    got = da_mod.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert da_mod.launches == before + 1
+    _close(got, decode_attention_ref(q.float(), k.float(), v.float(),
+                                     lengths), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -713,7 +786,15 @@ def _small_lm(arch, device):
     return build_model(cfg, device=device)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b", "zamba2-2.7b"])
+# the kernels each small model's steps launch
+LM_KERNELS = {"granite-8b": {"flash", "decode"}, "gemma2-9b": {"flash",
+                                                               "decode"},
+              "zamba2-2.7b": {"flash", "ssd", "decode"},
+              "qwen2-moe-a2.7b": {"flash", "decode"}, "xlstm-125m": {"ssd"}}
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma2-9b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b", "xlstm-125m"])
 def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
     """fp32: forward, prefill and ragged decode steps on the card (fp32
     kernels, TF32 off) against the CPU (the plain versions): forward at
@@ -745,15 +826,19 @@ def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
                                   clen.to(cuda))
         assert _rel(got, want) <= 1e-3
         clen += 1
-    assert fa_mod.launches > counts[0] and da_mod.launches > counts[2]
-    assert (ssd_mod.launches > counts[1]) == (arch == "zamba2-2.7b")
+    launched = {k for k, before, after in zip(
+        ("flash", "ssd", "decode"), counts,
+        (fa_mod.launches, ssd_mod.launches, da_mod.launches))
+        if after > before}
+    assert launched == LM_KERNELS[arch]
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b", "xlstm-125m"])
 def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
     """fp32: the engine on the card yields the CPU engine's greedy tokens,
     on the bucketed path (gemma2, whose local layers' window of 16 the
-    sequences outgrow) and the exact one (zamba2)."""
+    sequences outgrow; qwen2-moe) and the exact one (zamba2, xlstm)."""
     from repro_torch.models import layers as L
     from repro_torch.serving import Request, ServingEngine
     cpu = _small_lm(arch, "cpu")
@@ -801,4 +886,69 @@ def test_lm_at_head_dim_256_fits_the_card(cuda):
     want, _ = cpu.decode_step(params, tok, caches[0], clen)
     got, _ = card.decode_step(dparams, tok.to(cuda), caches[1], clen.to(cuda))
     assert _rel(got, want) <= 3e-2
+    assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]
+
+
+def test_xlstm_at_its_full_head_width_on_the_card(cuda):
+    """bf16 xlstm-125m at its full widths (d_model 768, 4 heads: the
+    mLSTM's 384-wide heads take ssd_scan's wide route), two layers:
+    forward, prefill and a decode step against the CPU's plain versions on
+    the same weights, by relative norm error at 3e-2."""
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("xlstm-125m").replace(n_layers=2, vocab=512)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(seed=3)
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 512, (2, 256), dtype=np.int32))
+    before = ssd_mod.launches
+    assert _rel(card.forward(dparams, tokens.to(cuda))[0],
+                cpu.forward(params, tokens)[0]) <= 3e-2
+    caches = [m.init_cache(batch=2, max_len=300) for m in (cpu, card)]
+    want, _ = cpu.prefill(params, tokens, caches[0])
+    got, _ = card.prefill(dparams, tokens.to(cuda), caches[1])
+    assert _rel(got, want) <= 3e-2
+    clen = torch.tensor([256, 256], dtype=torch.int32)
+    tok = torch.tensor([[1], [2]], dtype=torch.int32)
+    want, _ = cpu.decode_step(params, tok, caches[0], clen)
+    got, _ = card.decode_step(dparams, tok.to(cuda), caches[1], clen.to(cuda))
+    assert _rel(got, want) <= 3e-2
+    assert ssd_mod.launches == before + 2        # forward and prefill
+
+
+def test_encdec_on_the_card_matches_the_cpu(cuda):
+    """fp32 whisper-medium cut to 2 + 2 layers of its full width (16 heads
+    of 64) over 300 frames: encode (non-causal flash), prefill (causal
+    flash, cross-attention as non-causal flash with Sq != Sk) and ragged
+    decode steps (decode attention over the self cache, and over the cross
+    cache at length 300 for every row) against the CPU, by relative norm
+    error at 1e-3 (the bf16 caches)."""
+    from repro_torch.models import build_model, get_config, vision
+    from repro_torch.models import layers as L
+    cfg = get_config("whisper-medium").replace(
+        n_layers=2, encoder_layers=2, encoder_len=300, vocab=512)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu.init(seed=4, dtype=torch.float32)
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    frames = vision.synthetic_embeds(
+        5, vision.frame_embed_spec(2, 300, cfg.d_model), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(
+        0, 512, (2, 8), dtype=np.int32))
+    counts = (fa_mod.launches, da_mod.launches)
+    assert _rel(card.encode(dparams, frames.to(cuda)),
+                cpu.encode(params, frames)) <= 1e-3
+    caches = [m.init_cache(batch=2, max_len=24) for m in (cpu, card)]
+    want, _ = cpu.prefill(params, tokens, caches[0], frames=frames)
+    got, _ = card.prefill(dparams, tokens.to(cuda), caches[1],
+                          frames=frames.to(cuda))
+    assert _rel(got, want) <= 1e-3
+    clen = torch.tensor([8, 5], dtype=torch.int32)
+    for i in range(3):
+        tok = torch.tensor([[i], [i + 1]], dtype=torch.int32)
+        want, _ = cpu.decode_step(params, tok, caches[0], clen)
+        got, _ = card.decode_step(dparams, tok.to(cuda), caches[1],
+                                  clen.to(cuda))
+        assert _rel(got, want) <= 1e-3
+        clen += 1
     assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]

@@ -1,10 +1,14 @@
 """The port's decoder-only LMs against the JAX package's, on the CPU.
 
-Six configs, reduced as tests/test_models_smoke.py reduces them (two
-groups, d_model 64, 4 heads of head_dim 16, vocab 256): granite-8b,
+Nine configs, reduced as tests/test_models_smoke.py reduces them (two
+groups, d_model 64, 4 heads of head_dim 16, vocab 256; MoE: 8 experts,
+top-2 at most, a 64-wide shared expert, groups of 64): granite-8b,
 gemma-7b, gemma2-9b (sliding window, attention and final softcaps, post
 norms), starcoder2-15b (layernorm, qkv bias), zamba2-2.7b (Mamba-2 with a
-shared attention block) and internvl2-76b (with patch embeddings).  The JAX
+shared attention block), internvl2-76b (with patch embeddings),
+qwen2-moe-a2.7b (MoE with a shared expert), granite-moe-3b-a800m (MoE)
+and xlstm-125m (mLSTM and sLSTM; forward and prefill start the sLSTM's
+stabiliser differently, and each is held against its own).  The JAX
 model draws the parameters; leaves it initialises to a constant (norm
 scales, biases, the SSM's a_log, d_skip and dt_bias) get seeded numpy noise,
 so that every parameter takes part; ``convert.to_torch`` carries them over.
@@ -37,20 +41,25 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}    # one layer (ssd) only
 CACHE_TOL = {"float32": dict(rtol=1e-3, atol=1e-3)}
 ARCHS = ["granite-8b", "gemma-7b", "gemma2-9b", "starcoder2-15b",
-         "zamba2-2.7b", "internvl2-76b"]
+         "zamba2-2.7b", "internvl2-76b", "qwen2-moe-a2.7b",
+         "granite-moe-3b-a800m", "xlstm-125m"]
 B, S, MAX_LEN = 2, 16, 32
 
 
 def reduce_cfg(cfg):
-    """tests/test_models_smoke.py's reduction, for the dense, hybrid and
-    VLM configs (works on either package's ModelConfig)."""
+    """tests/test_models_smoke.py's reduction, for the decoder-only
+    configs (works on either package's ModelConfig)."""
     n_layers = (cfg.shared_attn_period * 2 if cfg.shared_attn_period
                 else len(cfg.pattern) * 2)
     return cfg.replace(
         n_layers=n_layers, d_model=64, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads
         else 4,
-        head_dim=16, d_ff=128, vocab=256, window=8 if cfg.window else None,
+        head_dim=16, d_ff=0 if cfg.d_ff == 0 else 128, vocab=256,
+        window=8 if cfg.window else None,
+        moe_experts=8 if cfg.moe_experts else 0,
+        moe_top_k=min(cfg.moe_top_k, 2) if cfg.moe_top_k else 0,
+        moe_shared_dff=64 if cfg.moe_shared_dff else 0, moe_group_size=64,
         ssm_state=8, ssm_head_dim=8, ssm_chunk=8,
         n_img_tokens=4 if cfg.n_img_tokens else 0, q_chunk=16,
         loss_seq_chunk=None,
@@ -193,9 +202,19 @@ def test_init_keeps_the_reference_tree_and_scales():
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    for arch in ("qwen2-moe-a2.7b", "xlstm-125m", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(get_config(arch), device="cpu")
+    """No registered config is left unported: each builds (on ``meta``)
+    and its parameter count is the JAX package's; only a kind neither
+    package knows raises."""
+    from repro.launch.steps import count_params as jax_count
+    from repro_torch.launch.steps import count_params
+    from repro_torch.models import config_names
+
+    for arch in config_names():
+        assert build_model(get_config(arch), device="meta") is not None
+        assert count_params(get_config(arch)) == jax_count(jax_config(arch))
+    bogus = get_config("granite-8b").replace(pattern=(("attn", "rnn"),))
+    with pytest.raises(ValueError, match="unknown sub-layer kinds"):
+        build_model(bogus, device="meta")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,9 @@
 """The port's decoder-only LMs against the JAX package's in bf16, on the CPU.
 
-The first three reduced configs of test_torch_lm.py (the other three are in
-test_torch_lm_bf16_cells.py), with the same parameter values in bf16.
+Five reduced configs of test_torch_lm.py, the first three and the MoE and
+xLSTM families' qwen2-moe-a2.7b and granite-moe-3b-a800m (the other four
+are in test_torch_lm_bf16_cells.py), with the same parameter values in
+bf16.
 Both packages round every operation to bf16, but in other places (XLA
 fuses elementwise chains and rounds at the fusion's end, PyTorch rounds
 each operator), so their bf16 logits differ by bf16 noise, which
@@ -17,7 +19,7 @@ import pytest
 
 from test_torch_lm import ARCHS, run_both
 
-CASES = ARCHS[:3]
+CASES = ARCHS[:3] + ARCHS[6:8]
 TOL = 3e-2
 
 

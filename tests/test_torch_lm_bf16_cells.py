@@ -1,6 +1,6 @@
-"""test_torch_lm_bf16.py's check on the last three reduced configs of
-test_torch_lm.py (starcoder2-15b, zamba2-2.7b, internvl2-76b), in a file of
-their own so that the two halves run side by side."""
+"""test_torch_lm_bf16.py's check on the other four reduced configs of
+test_torch_lm.py (starcoder2-15b, zamba2-2.7b, internvl2-76b, xlstm-125m),
+in a file of their own so that the two halves run side by side."""
 
 import pytest
 
