@@ -6,12 +6,13 @@ on the card unless ``--device`` names another.
 Runs Table I (``bench_zoo_torch``), Table III (``bench_overhead_torch``),
 Figs 6-15 and Table IV (``bench_partitions_torch``), the <50 ms query
 claim (``bench_query_torch``), elastic re-planning
-(``bench_elastic_torch``) and the serving plane's goodput gate
-(``bench_serving_torch``), prints a human-readable report per table and a
-machine-readable ``name,us_per_call,derived`` CSV at the end, and exits 1
-when any gate failed.  Not yet ported: the reference's autotuning and
-roofline benchmarks (``bench_autotune``, ``bench_roofline``), which need
-the analysis passes and the launch package.
+(``bench_elastic_torch``), the serving plane's goodput gate
+(``bench_serving_torch``) and kernel autotuning with its shared-memory and
+tiling pruning gates (``bench_autotune_torch``), prints a human-readable
+report per table and a machine-readable ``name,us_per_call,derived`` CSV at
+the end, and exits 1 when any gate failed.  Not yet ported: the
+reference's roofline benchmark (``bench_roofline``), which needs the
+launch package.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ def main() -> None:
     args = ap.parse_args()
     quick, device = not args.full, args.device
 
-    from . import (bench_elastic_torch, bench_overhead_torch,
-                   bench_partitions_torch, bench_query_torch,
-                   bench_serving_torch, bench_zoo_torch)
+    from . import (bench_autotune_torch, bench_elastic_torch,
+                   bench_overhead_torch, bench_partitions_torch,
+                   bench_query_torch, bench_serving_torch, bench_zoo_torch)
 
     rows = []
     rows += bench_zoo_torch.run(quick, device=device)        # Table I
@@ -39,6 +40,7 @@ def main() -> None:
     rows += bench_partitions_torch.run(quick, device=device)  # Figs 6-15
     rows += bench_query_torch.run(quick, device=device)      # <50ms query
     rows += bench_elastic_torch.run(quick, device=device)    # re-planning
+    rows += bench_autotune_torch.run(quick, device=device)   # autotune gates
     serving = bench_serving_torch.smoke(device=device)       # goodput gate
     rows.append(("serving/poisson_rel_err", 0.0,
                  serving["poisson"]["rel_err"]))
@@ -50,7 +52,8 @@ def main() -> None:
 
     failures = (bench_partitions_torch.failures()
                 + bench_query_torch.run.failures
-                + bench_serving_torch.failures())
+                + bench_serving_torch.failures()
+                + bench_autotune_torch.run.failures)
     if failures:
         print("FAILED gates: " + ", ".join(failures))
         sys.exit(1)

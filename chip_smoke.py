@@ -122,6 +122,17 @@ at the lengths of the path's heaviest decode step.
 The ``paper`` phase also runs ``bench_partitions_torch``'s DAG gate, whose
 enc-dec LM must launch flash_attention (the zoo's benchmarks none).
 
+The ``analysis`` phase runs ``python -m repro_torch.analysis --strict`` over
+every target with the card's shared-memory limit (the kernels' candidate
+footprints and tile alignment at the paths' full-width shapes, the graph
+checks, the FX dataflow lint of the zoo, the LMs' graphs and a kernel demo
+graph whose kernel-bearing blocks are captured in CUDA graphs, the cost
+checks), prints each footprint beside the limit, and runs
+``bench_autotune_torch``'s sweep, its shared-memory and tiling pruning
+gates and ``--verify-smem`` (every candidate the analysis admits at those
+shapes launches, the smallest it prunes is refused with the same byte
+count); every kernel must launch in it.
+
 On the card every block time, and every autotuner trial, is the device
 time of replays of the block captured in a CUDA graph (``TimingProvider``,
 ``KernelAutotuner``), as the reference times compiled programs; after each
@@ -2436,6 +2447,85 @@ def paper_phase(dev) -> None:
                            f"{failures}")
 
 
+def analysis_phase(dev) -> None:
+    """The analysis passes on the card: ``python -m repro_torch.analysis``
+    with ``--strict`` over every target, with the card's shared-memory
+    limit and the demo graph's kernel-bearing blocks captured in CUDA
+    graphs; each kernel's footprint at each path shape beside the limit,
+    with the candidates the shared-memory and tiling analyses prune; the
+    demo graph's blocks captured once more, apart; then
+    ``bench_autotune_torch``'s sweep with its two pruning gates and
+    ``--verify-smem``.  Each kernel must launch during the phase (the
+    counts are set to 0 before it); any failure raises."""
+    from benchmarks import bench_autotune_torch as ba
+
+    from repro_torch.analysis import cli, fx_lint
+    from repro_torch.analysis.kernel_smem import (kernel_smem_bytes,
+                                                  lint_candidates)
+    from repro_torch.analysis.tiling import misaligned_candidates
+    from repro_torch.core.graph import fuse_blocks
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels.substrate import (DEFAULT_CANDIDATES,
+                                               card_smem_limit)
+
+    t0 = time.perf_counter()
+    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    limit = card_smem_limit(dev)
+    rc = cli.main(["--device", str(dev), "--strict", "--allow", "SCN309",
+                   "--allow", "SCN310", "kernels", "graphs", "tiling", "jaxpr", "cost",
+                   str(ROOT / "examples" / "dbs" / "edge_cloud_db.json"),
+                   str(ROOT / "examples" / "plans" /
+                       "edge_cloud_feasible.json")])
+    print(f"analysis: scission-lint --strict exit code {rc} with the card's "
+          f"limit of {limit} B per block, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rc:
+        raise RuntimeError("scission-lint --strict failed on the card")
+    for kernel, cands in sorted(DEFAULT_CANDIDATES.items()):
+        for path, args, options in cli.KERNEL_SHAPES[kernel]:
+            sizes = {json.dumps(p, sort_keys=True): kernel_smem_bytes(
+                kernel, p, args, options) for p in cands}
+            kept, pruned, _ = lint_candidates(kernel, cands, args, limit,
+                                              options)
+            tiled = misaligned_candidates(kernel, kept, args, options)
+            print(f"analysis footprint {kernel} at {path} "
+                  f"{tuple(args[0].shape)}: {sizes} B vs {limit} B; pruned "
+                  f"{sorted(pruned)}; tile-pruned {tiled}")
+    demo = fuse_blocks(cli.demo_kernel_graph())
+    diags = fx_lint.lint_blocks(demo, device=dev)
+    print(f"analysis: the demo graph's {len(demo)} kernel-bearing blocks "
+          f"captured in CUDA graphs on the card, diagnostics "
+          f"{[d.render() for d in diags]}")
+    if diags:
+        raise RuntimeError("the FX lint flagged the demo graph on the card")
+    rows = ba.run(quick=True, device=dev)
+    for name, us, derived in rows:
+        print(f"analysis {name},{us:.1f},{derived}")
+    if ba.run.failures:
+        raise RuntimeError(f"bench_autotune_torch's gates failed: "
+                           f"{ba.run.failures}")
+    vv = ba.verify_smem(dev)
+    for e in vv["kernels"]:
+        for c in e["candidates"]:
+            print(f"analysis verify-smem {e['kernel']} at {e['path']} "
+                  f"{c['params']}: {c['smem_bytes']} B dynamic + "
+                  f"{e['static_smem']} B static; admitted {c['admitted']}, "
+                  f"launched {c['launched']}"
+                  + (f", refused: {c['refusal']}" if c["refusal"] else "")
+                  + ("" if c["agrees"] else "  <-- DISAGREES"))
+    if not vv["ok"]:
+        raise RuntimeError("--verify-smem: a launch disagreed with the "
+                           "shared-memory analysis")
+    counts = {"flash_attention": fa_mod.launches,
+              "ssd_scan": ssd_mod.launches,
+              "decode_attention": da_mod.launches}
+    print(f"analysis-phase launches {counts}")
+    require_launches(counts)
+    print(f"analysis phase: {time.perf_counter() - t0:.1f} s of wall time")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2517,6 +2607,11 @@ def main() -> int:
     # the paper's benchmarks: the zoo's launch no hand-written kernel, the
     # DAG gate's enc-dec LM launches flash_attention (checked inside)
     paper_phase(dev)
+    torch.cuda.empty_cache()
+
+    # the analysis passes on the card, after the paths they reason about
+    analysis_phase(dev)
+    torch.cuda.empty_cache()
 
     report = []
     for r in kernels:

@@ -2,7 +2,7 @@
 
 Every analyzer — the plan linter (SCN1xx), the kernel memory / tiling
 analyzers (SCN2xx), the graph IR checker (SCN3xx), the cost-model
-soundness pass (SCN4xx) and the jaxpr dataflow lint (SCN5xx) — reports
+soundness pass (SCN4xx) and the FX dataflow lint (SCN5xx) — reports
 findings as
 :class:`Diagnostic` values: a stable machine-checkable ``code``, a
 ``severity``, a human message, the ``subject`` the finding is about (a
@@ -18,7 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 # Severities, ordered: an ``error`` means the subject cannot work (an
-# infeasible plan, an over-budget kernel, a malformed graph); a ``warning``
+# infeasible plan, a kernel over the card's shared memory, a malformed graph); a ``warning``
 # means it works but probably not as intended (silent fallback, invisible
 # clamp); ``info`` is advisory context (e.g. which candidates were pruned).
 ERROR = "error"
@@ -79,10 +79,14 @@ CODES: dict[str, str] = {
               "link",
     "SCN111": "batch size outside the measured profile range was clamped",
     "SCN112": "top_n <= 0 requests an empty result by construction",
-    # -- SCN2xx: kernel memory analyzer (Pallas candidates vs VMEM budget) ---
-    "SCN201": "kernel candidate statically exceeds the VMEM budget",
-    "SCN202": "every candidate of a kernel sweep exceeds the VMEM budget",
-    "SCN203": "unknown kernel: VMEM footprint cannot be computed statically",
+    # -- SCN2xx: kernel shared-memory analysis (per-CTA footprint vs the ----
+    # -- card's limit per block, analysis/kernel_smem.py) -------------------
+    "SCN201": "kernel candidate statically exceeds the shared memory a CTA "
+              "may use",
+    "SCN202": "every candidate of a kernel sweep exceeds the shared memory a "
+              "CTA may use",
+    "SCN203": "unknown kernel: per-CTA shared-memory footprint cannot be "
+              "computed statically",
     # -- SCN3xx: graph IR checker (LayerGraph well-formedness) ---------------
     "SCN301": "empty graph",
     "SCN302": "predecessor index is dangling or non-topological",
@@ -96,13 +100,13 @@ CODES: dict[str, str] = {
     "SCN308": "graph is untraced: shape-chain checks skipped",
     "SCN309": "graph is not series-parallel: non-SP region linearised",
     "SCN310": "series-parallel decomposition failed: chain fallback",
-    # -- SCN2xx (cont.): TPU tile-alignment analyzer (repro.analysis.tiling) ------
-    "SCN204": "kernel candidate block shape is misaligned to the dtype's "
-              "minimum TPU tile",
+    # -- SCN2xx (cont.): Hopper tile alignment (analysis/tiling.py) ---------
+    "SCN204": "kernel candidate block is misaligned to the Hopper kernel's "
+              "tiles (padded rows) or refused by its launch",
     "SCN205": "kernel candidate leaves grid-remainder padding waste",
-    "SCN206": "every candidate of a kernel sweep is tile-misaligned",
-    "SCN207": "minor (lane) dimension below the 128-lane tile: relayout "
-              "padding",
+    "SCN206": "every candidate of a kernel sweep is misaligned or refused",
+    "SCN207": "row not a whole number of 16-byte pieces, or padded or "
+              "refused by the bf16 tensor-core tiles",
     # -- SCN4xx: cost-model soundness (BenchmarkDB x NetworkModel vs the ----
     # -- invariants the exact DPs assume) -----------------------------------
     "SCN401": "non-finite or negative stage time / byte count in the "
@@ -118,12 +122,13 @@ CODES: dict[str, str] = {
               "inter-resource link",
     "SCN407": "cost-model composition violated: latency not additive or "
               "bottleneck not max-composing",
-    # -- SCN5xx: jaxpr dataflow lint (traced Block.make_callable) ------------
-    "SCN501": "float64 value inside a traced block (f64 leakage)",
+    # -- SCN5xx: FX dataflow lint (Block.make_callable traced by make_fx) ---
+    "SCN501": "float64 value inside the FX trace of a block (f64 leakage)",
     "SCN502": "traced boundary tensor disagrees with BenchmarkDB / graph "
               "output bytes",
-    "SCN503": "host callback or non-jittable primitive inside a block",
-    "SCN504": "sub-f32 accumulation dtype on a kernel-path contraction",
+    "SCN503": "host sync inside a block: fails meta tracing, holds a "
+              "host-sync op, or cannot be captured in a CUDA graph",
+    "SCN504": "sub-f32 output of a contraction in a kernel-bearing block",
 }
 
 

@@ -7,13 +7,11 @@ The kernel entry points are ``ops.flash_attention``,
 names hold each kernel's wrapper and its ``launches`` counter.
 """
 
-from .ops import (decode_attention_node, flash_attention_node,
-                  smem_footprint, ssd_scan_node)
+from .ops import decode_attention_node, flash_attention_node, ssd_scan_node
 from .substrate import (DEFAULT_CANDIDATES, DEFAULT_PARAMS, KernelAutotuner,
                         TuneRecord)
 
 __all__ = [
     "flash_attention_node", "decode_attention_node", "ssd_scan_node",
-    "smem_footprint",
     "DEFAULT_CANDIDATES", "DEFAULT_PARAMS", "KernelAutotuner", "TuneRecord",
 ]

@@ -117,8 +117,9 @@ def build_log(name: str) -> str:
 
 def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     """Per kernel (mangled name) of ``csrc/<name>.cu``, from its build log:
-    ``registers`` per thread and bytes of ``spill_stores`` and
-    ``spill_loads``."""
+    ``registers`` per thread, bytes of ``spill_stores`` and
+    ``spill_loads``, and bytes of static shared memory ``smem`` (0 where
+    ptxas names none: the kernels' tiles are dynamic shared memory)."""
     return parse_ptxas(build_log(name))
 
 
@@ -137,6 +138,8 @@ def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
             entry["spill_loads"] = int(m.group(2))
         elif m := re.search(r"Used (\d+) registers", line):
             entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(m.group(1)) if m else 0
     return report
 
 

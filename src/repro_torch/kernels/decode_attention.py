@@ -66,9 +66,9 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+def smem_parts(params: dict, shapes, dtype: torch.dtype) -> dict[str, int]:
     """Dynamic shared memory of one CTA for ``params`` = {block_k} at
-    ``shapes`` = (q shape, k shape) in ``dtype``; mirrors
+    ``shapes`` = (q shape, k shape) in ``dtype``, term by term; mirrors
     ``csrc/decode_attention.cu``: in bf16 ``da_mma_smem`` (the 16-row query
     tile and the ring of k and v tiles, rows padded to hd + 8), in fp32
     ``da_layout`` (the k and v tiles, fp32 scores, q group, reduction slots
@@ -78,11 +78,46 @@ def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
     Smax, Hk = k_shape[1], k_shape[2]
     bk = min(params["block_k"], Smax)
     if dtype == torch.bfloat16:
-        return 2 * (hd + 8) * (GROUP_ROWS + 2 * TILE_ROWS * ring_stages(bk))
+        row = 2 * (hd + 8)
+        ring = row * TILE_ROWS * ring_stages(bk)
+        return {"q": row * GROUP_ROWS, "k": ring, "v": ring}
     gp = group_pad(H // Hk)
     tile = _align16(bk * hd * dtype.itemsize)
-    return (2 * tile + _align16(bk * gp * 4) + _align16(gp * hd * 4)
-            + _align16(2 * WARPS * gp * 4) + (THREADS // hd) * gp * hd * 4)
+    return {"k": tile, "v": tile, "scores": _align16(bk * gp * 4),
+            "q": _align16(gp * hd * 4),
+            "reduction": _align16(2 * WARPS * gp * 4),
+            "acc": (THREADS // hd) * gp * hd * 4}
+
+
+def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+    """The total of :func:`smem_parts`: the figure a launch hands the
+    kernel, which refuses any other."""
+    return sum(smem_parts(params, shapes, dtype).values())
+
+
+def check_launch(params: dict, shapes, dtype: torch.dtype,
+                 limit: int | None = None) -> str | None:
+    """Why a launch at ``params`` = {block_k} (as :func:`block_size` gives
+    it) on ``shapes`` = (q shape, k shape) in ``dtype`` would be refused,
+    or None; ``limit`` is the card's shared memory per block (None: not
+    checked)."""
+    hd = shapes[0][2]
+    if dtype not in _build.DTYPE_CODES:
+        return (f"decode_attention kernel takes float32 or bfloat16 q, k, "
+                f"v, got {dtype}")
+    if dtype == torch.bfloat16:
+        if hd not in MMA_HEAD_DIMS:
+            return (f"decode_attention's bf16 kernel takes head_dim in "
+                    f"{MMA_HEAD_DIMS}, got {hd}")
+    elif hd > THREADS or (hd * dtype.itemsize) % 16:
+        return (f"decode_attention kernel takes head_dim <= {THREADS} "
+                f"whose rows are whole 16-byte pieces, got {hd} in {dtype}")
+    nbytes = smem_bytes(params, shapes, dtype)
+    if limit is not None and nbytes > limit:
+        return (f"decode_attention block_k={params['block_k']} at head_dim "
+                f"{hd} in {dtype} needs {nbytes} B of shared memory; the "
+                f"card allows {limit} B")
+    return None
 
 
 def window_tiles(n_tiles: int, tile: int, window: int | None) -> int:
@@ -129,13 +164,12 @@ def _plan(device: torch.device, dtype: torch.dtype, B: int, Smax: int, H: int,
           Hk: int, hd: int, block_k: int, window: int | None = None
           ) -> dict:
     bk = min(block_k, Smax)
-    nbytes = smem_bytes({"block_k": bk}, ((B, H, hd), (B, Smax, Hk, hd)),
-                        dtype)
-    limit = card_smem_limit(device)
-    if nbytes > limit:
-        raise ValueError(f"decode_attention block_k={block_k} at head_dim "
-                         f"{hd} in {dtype} needs {nbytes} B of shared "
-                         f"memory; the card allows {limit} B")
+    shapes = ((B, H, hd), (B, Smax, Hk, hd))
+    reason = check_launch({"block_k": block_k}, shapes, dtype,
+                          card_smem_limit(device))
+    if reason:
+        raise ValueError(reason)
+    nbytes = smem_bytes({"block_k": bk}, shapes, dtype)
     G = H // Hk
     rows = GROUP_ROWS if dtype == torch.bfloat16 else group_pad(G)
     groups = Hk * -(-G // rows)
@@ -227,14 +261,11 @@ def _launch(q, k, v, lengths, softcap, window, block_k):
     B, H, hd = q.shape
     Smax, Hk = k.shape[1], k.shape[2]
     esize = q.element_size()
-    if q.dtype == torch.bfloat16:
-        if hd not in MMA_HEAD_DIMS:
-            raise ValueError(f"decode_attention's bf16 kernel takes head_dim "
-                             f"in {MMA_HEAD_DIMS}, got {hd}")
-    elif hd > THREADS or (hd * esize) % 16:
-        raise ValueError(f"decode_attention kernel takes head_dim <= "
-                         f"{THREADS} whose rows are whole 16-byte pieces, "
-                         f"got {hd} in {q.dtype}")
+    reason = check_launch({"block_k": block_size(q, k, block_k)},
+                          (q.shape, k.shape), q.dtype,
+                          card_smem_limit(q.device))
+    if reason:
+        raise ValueError(reason)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16 or any(t.stride(i) * esize % 16

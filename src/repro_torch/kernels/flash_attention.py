@@ -55,9 +55,10 @@ def mma_instances(per_kernel: dict) -> dict[int, list]:
     return out
 
 
-def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+def smem_parts(params: dict, shapes, dtype: torch.dtype) -> dict[str, int]:
     """Dynamic shared memory of one CTA for ``params`` = {block_q, block_k}
-    at ``shapes`` = (q shape, k shape) in ``dtype``; mirrors
+    at ``shapes`` = (q shape, k shape) in ``dtype``, term by term at the
+    tile sizes a launch uses (:func:`tile_sizes`); mirrors
     ``fa_mma_smem_bytes`` (bf16: the q tile and two stages of k and v
     tiles, rows padded to hd + 8) and ``fa_smem_floats`` (fp32) in
     ``csrc/flash_attention.cu``."""
@@ -65,8 +66,45 @@ def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
     Sq, hd, Sk = q_shape[1], q_shape[3], k_shape[1]
     bq, bk = tile_sizes(params["block_q"], params["block_k"], Sq, Sk, dtype)
     if dtype == torch.bfloat16:
-        return 2 * (hd + 8) * (bq + 4 * bk)
-    return 4 * (bq * hd + bk * (hd + 1) + bk * hd + bq * bk + bq * hd + 3 * bq)
+        row = 2 * (hd + 8)
+        return {"q": row * bq, "k": row * 2 * bk, "v": row * 2 * bk}
+    return {"q": 4 * bq * hd, "k": 4 * bk * (hd + 1), "v": 4 * bk * hd,
+            "scores": 4 * bq * bk, "acc": 4 * bq * hd,
+            "softmax": 4 * 3 * bq}
+
+
+def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+    """The total of :func:`smem_parts`: the figure a launch hands the
+    kernel, which refuses any other."""
+    return sum(smem_parts(params, shapes, dtype).values())
+
+
+def check_launch(params: dict, shapes, dtype: torch.dtype,
+                 limit: int | None = None) -> str | None:
+    """Why a launch at block sizes ``params`` = {block_q, block_k} (as
+    :func:`block_sizes` gives them) on ``shapes`` = (q shape, k shape) in
+    ``dtype`` would be refused, or None; ``limit`` is the card's shared
+    memory per block (None: not checked)."""
+    hd = shapes[0][3]
+    if dtype not in _build.DTYPE_CODES:
+        return (f"flash_attention kernel takes float32 or bfloat16 q, k, v, "
+                f"got {dtype}")
+    if dtype == torch.bfloat16:
+        bq, _ = tile_sizes(params["block_q"], params["block_k"],
+                           shapes[0][1], shapes[1][1], dtype)
+        if hd not in MMA_HEAD_DIMS:
+            return (f"flash_attention's bf16 kernel takes head_dim a "
+                    f"multiple of 16 up to 256, got {hd}")
+        if bq > MAX_BLOCK_Q:
+            return (f"flash_attention's bf16 kernel takes block_q <= "
+                    f"{MAX_BLOCK_Q}, got {params['block_q']}")
+    nbytes = smem_bytes(params, shapes, dtype)
+    if limit is not None and nbytes > limit:
+        return (f"flash_attention block_q={params['block_q']}, "
+                f"block_k={params['block_k']} at head_dim {hd} in {dtype} "
+                f"needs {nbytes} B of shared memory; the card allows "
+                f"{limit} B")
+    return None
 
 
 def block_sizes(q, k, block_q=None, block_k=None) -> tuple[int, int]:
@@ -136,15 +174,14 @@ def _launch(q, k, v, causal, window, softcap, block_q, block_k):
     B, Sq, H, hd = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     block_q, block_k = block_sizes(q, k, block_q, block_k)
+    params = {"block_q": block_q, "block_k": block_k}
+    reason = check_launch(params, (q.shape, k.shape), q.dtype,
+                          card_smem_limit(q.device))
+    if reason:
+        raise ValueError(reason)
     bq, bk = tile_sizes(block_q, block_k, Sq, Sk, q.dtype)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
-        if hd not in MMA_HEAD_DIMS:
-            raise ValueError(f"flash_attention's bf16 kernel takes head_dim "
-                             f"a multiple of 16 up to 256, got {hd}")
-        if bq > MAX_BLOCK_Q:
-            raise ValueError(f"flash_attention's bf16 kernel takes block_q "
-                             f"<= {MAX_BLOCK_Q}, got {block_q}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(t.stride(i) * 2 % 16
                                         for i in range(3)):
@@ -152,14 +189,7 @@ def _launch(q, k, v, causal, window, softcap, block_q, block_k):
                                  f"rows as 16-byte pieces: its storage and "
                                  f"strides {t.stride()} must be 16-byte "
                                  f"aligned")
-    nbytes = smem_bytes({"block_q": block_q, "block_k": block_k},
-                        (q.shape, k.shape), q.dtype)
-    limit = card_smem_limit(q.device)
-    if nbytes > limit:
-        raise ValueError(f"flash_attention block_q={block_q}, "
-                         f"block_k={block_k} at head_dim {hd} in {q.dtype} "
-                         f"needs {nbytes} B of shared memory; the card "
-                         f"allows {limit} B")
+    nbytes = smem_bytes(params, (q.shape, k.shape), q.dtype)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _build.library("flash_attention")
     code = lib.fa_forward(

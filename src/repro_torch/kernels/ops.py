@@ -16,30 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
-from .decode_attention import decode_attention, smem_bytes as _da_smem
-from .flash_attention import flash_attention, smem_bytes as _fa_smem
-from .ssd_scan import smem_bytes as _ssd_smem, ssd_scan
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 from .substrate import DEFAULT_PARAMS
 
 __all__ = ["flash_attention", "decode_attention", "ssd_scan",
-           "flash_attention_node", "decode_attention_node", "ssd_scan_node",
-           "smem_footprint"]
-
-
-def smem_footprint(kernel: str, params: dict, args, options=None) -> int:
-    """Shared memory per CTA of ``kernel``'s launch inside a node whose input
-    is ``args[0]``, at block sizes ``params`` (the autotuner's prune)."""
-    x = tuple(args[0].shape)
-    if kernel == "flash_attention":            # q = k = v = x
-        return _fa_smem(params, (x, x), args[0].dtype)
-    if kernel == "decode_attention":           # q = x, the cache in options
-        o = options or {}
-        k = (x[0], o["cache_len"], o["kv_heads"], x[2])
-        return _da_smem(params, (x, k), args[0].dtype)
-    if kernel == "ssd_scan":                   # b = c = x[..., :state_dim]
-        n = (options or {}).get("state_dim", 16)
-        return _ssd_smem(params, (x, (*x[:-1], n)), args[0].dtype)
-    raise KeyError(f"no shared-memory model for kernel {kernel!r}")
+           "flash_attention_node", "decode_attention_node", "ssd_scan_node"]
 
 
 def _layer_node(name, kind, kernel, factory, params, options, device,

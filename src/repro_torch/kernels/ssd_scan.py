@@ -29,6 +29,7 @@ MAX_CHUNK = 256         # bf16 route: csrc/ssd_scan.cu kMaxChunk
 NARROW_P, NARROW_N = 128, 64
 MAX_P = MAX_N = 384
 MAX_WIDE_CHUNK = 128
+CHUNK_ALIGN = 16        # bf16 route: a chunk is whole m16 tiles
 
 
 def wide(P: int, N: int) -> bool:
@@ -75,33 +76,71 @@ def _round16(n: int) -> int:
 
 def chunk_length(chunk: int, S: int, dtype: torch.dtype) -> int:
     """The chunk length a launch uses: ``min(chunk, S)``, rounded up to a
-    multiple of 16 (whole m16 tiles) in bf16; steps past S are padding."""
+    multiple of ``CHUNK_ALIGN`` (whole m16 tiles) in bf16; steps past S are
+    padding."""
     L = min(chunk, S)
-    return _round16(L) if dtype == torch.bfloat16 else L
+    return -(-L // CHUNK_ALIGN) * CHUNK_ALIGN if dtype == torch.bfloat16 \
+        else L
 
 
-def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+def smem_parts(params: dict, shapes, dtype: torch.dtype) -> dict[str, int]:
     """Dynamic shared memory of one CTA for ``params`` = {chunk} at
-    ``shapes`` = (x shape, b shape) with x in ``dtype``; mirrors
-    ``csrc/ssd_scan.cu``: in bf16 ``chunked_smem``, the larger of the
-    chunk-state and chunk-scan passes (bf16 rows padded to a multiple of
-    16 plus 8; on the wide route a 64 x 128 state tile in pass 1, and in
-    pass 3 a 128-wide P tile of x and S_in slabs of 64 rows), in fp32
-    ``ssd_smem_floats``."""
+    ``shapes`` = (x shape, b shape) with x in ``dtype``, term by term;
+    mirrors ``csrc/ssd_scan.cu``: in bf16 ``chunked_smem``, the terms of
+    the larger of the chunk-state and chunk-scan passes (bf16 rows padded
+    to a multiple of 16 plus 8; on the wide route a 64 x 128 state tile in
+    pass 1, and in pass 3 a 128-wide P tile of x and S_in slabs of 64
+    rows), in fp32 ``ssd_smem_floats``."""
     x_shape, b_shape = shapes[0], shapes[1]
     S, P, N = x_shape[1], x_shape[3], b_shape[3]
     L = chunk_length(params["chunk"], S, dtype)
-    if dtype == torch.bfloat16 and wide(P, N):
-        sx, sn = NARROW_P + 8, NARROW_N + 8
-        state = 2 * L * sn + 2 * L * sx + 4 * L
-        scan = 2 * L * sx + 4 * NARROW_N * sx + 8 * L + 4 * L * sn
-        return max(state, scan)
     if dtype == torch.bfloat16:
-        sx, sn = _round16(P) + 8, _round16(N) + 8
-        state = 2 * L * sn + 2 * L * sx + 4 * L
-        scan = 4 * L * sn + 2 * L * sx + 4 * _round16(N) * sx + 8 * L
-        return max(state, scan)
-    return 4 * (L * P + 2 * L * (N + 1) + L * L + N * P + 3 * L)
+        if wide(P, N):
+            Pp, Np, slab = NARROW_P, NARROW_N, NARROW_N
+        else:
+            Pp, Np, slab = _round16(P), _round16(N), _round16(N)
+        sx, sn = Pp + 8, Np + 8
+        state = {"state x": 2 * L * sx, "state seg": 4 * L,
+                 "state b": 2 * L * sn}
+        scan = {"scan x": 2 * L * sx, "scan S_in": 4 * slab * sx,
+                "scan seg": 8 * L, "scan b": 2 * L * sn,
+                "scan c": 2 * L * sn}
+        return max(state, scan, key=lambda p: sum(p.values()))
+    return {"x": 4 * L * P, "b, c": 4 * 2 * L * (N + 1), "scores": 4 * L * L,
+            "state": 4 * N * P, "seg": 4 * 3 * L}
+
+
+def smem_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
+    """The total of :func:`smem_parts`: the figure a launch hands the
+    kernel, which refuses any other."""
+    return sum(smem_parts(params, shapes, dtype).values())
+
+
+def check_launch(params: dict, shapes, dtype: torch.dtype,
+                 limit: int | None = None) -> str | None:
+    """Why a launch at ``params`` = {chunk} on ``shapes`` = (x shape, b
+    shape) with x in ``dtype`` would be refused, or None; ``limit`` is the
+    card's shared memory per block (None: not checked)."""
+    x_shape, b_shape = shapes[0], shapes[1]
+    S, P, N = x_shape[1], x_shape[3], b_shape[3]
+    chunk = params["chunk"]
+    if dtype not in _build.DTYPE_CODES:
+        return f"ssd_scan kernel takes float32 or bfloat16 x, got {dtype}"
+    L = chunk_length(chunk, S, dtype)
+    if dtype == torch.bfloat16 and (
+            L > MAX_CHUNK or P > MAX_P or N > MAX_N or
+            (wide(P, N) and L > MAX_WIDE_CHUNK)):
+        return (f"ssd_scan's bf16 kernel takes chunk <= {MAX_CHUNK} with P "
+                f"<= {NARROW_P} and N <= {NARROW_N}, or chunk <= "
+                f"{MAX_WIDE_CHUNK} with P and N <= {MAX_P}, got "
+                f"chunk={chunk}, P={P}, N={N}")
+    nbytes = smem_bytes(params, shapes, dtype)
+    if limit is not None and nbytes > limit:
+        route = "fp32" if dtype == torch.float32 else "bf16"
+        return (f"ssd_scan's {route} kernel at chunk={chunk}, P={P}, N={N} "
+                f"needs {nbytes} B of shared memory; the card allows "
+                f"{limit} B")
+    return None
 
 
 def workspace_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
@@ -149,23 +188,14 @@ def _launch(x, log_a, b, c, chunk):
         raise ValueError("x, log_a, b, c must be on one device")
     B, S, H, P = x.shape
     N = b.shape[-1]
+    shapes = (x.shape, b.shape)
+    reason = check_launch({"chunk": chunk}, shapes, x.dtype,
+                          card_smem_limit(x.device))
+    if reason:
+        raise ValueError(reason)
     L = chunk_length(chunk, S, x.dtype)
-    if x.dtype == torch.bfloat16 and (
-            L > MAX_CHUNK or P > MAX_P or N > MAX_N or
-            (wide(P, N) and L > MAX_WIDE_CHUNK)):
-        raise ValueError(f"ssd_scan's bf16 kernel takes chunk <= "
-                         f"{MAX_CHUNK} with P <= {NARROW_P} and N <= "
-                         f"{NARROW_N}, or chunk <= {MAX_WIDE_CHUNK} with P "
-                         f"and N <= {MAX_P}, got chunk={chunk}, P={P}, "
-                         f"N={N}")
-    params, shapes = {"chunk": L}, (x.shape, b.shape)
+    params = {"chunk": L}
     nbytes = smem_bytes(params, shapes, x.dtype)
-    limit = card_smem_limit(x.device)
-    if nbytes > limit:
-        route = "fp32" if x.dtype == torch.float32 else "bf16"
-        raise ValueError(f"ssd_scan's {route} kernel at chunk={chunk}, "
-                         f"P={P}, N={N} needs {nbytes} B of shared memory; "
-                         f"the card allows {limit} B")
     x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fin = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)

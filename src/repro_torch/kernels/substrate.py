@@ -13,10 +13,13 @@
 
 Where the TPU autotuner pruned candidates against a VMEM budget, this one
 prunes against the card's shared memory per block: a candidate whose tile
-footprint (``kernels.ops.smem_footprint``) exceeds the limit is recorded in
-``TuneRecord.pruned`` with its byte count and never launched.  A failing
-launch is not caught: a CUDA fault leaves a sticky error that would poison
-every later measurement, so it propagates.
+footprint (``analysis.kernel_smem.lint_candidates``) exceeds the limit is
+recorded in ``TuneRecord.pruned`` with its byte count and never launched.
+With ``tile_check`` a candidate misaligned to the Hopper kernels' tiles, or
+one the launch would refuse (``analysis.tiling``), is recorded in
+``TuneRecord.tile_pruned`` with the reason and never launched either.  A
+failing launch is not caught: a CUDA fault leaves a sticky error that would
+poison every later measurement, so it propagates.
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ class TuneRecord:
 
     The JSON fields are the TPU autotuner's.  ``pruned`` and ``vmem_limit``
     keep their names but hold the card's shared-memory footprints and
-    per-block limit in bytes; ``tile_pruned`` stays empty (no TPU tiling).
+    per-block limit in bytes; ``tile_pruned`` holds the reasons of the
+    candidates the Hopper tiling analysis pruned.
     """
 
     kernel: str
@@ -103,6 +107,7 @@ class TuneRecord:
     # candidates pruned before timing: json(params) -> shared-memory bytes
     pruned: dict[str, float] = field(default_factory=dict)
     vmem_limit: float | None = None   # the shared-memory limit of the sweep
+    # candidates misaligned or refused, pruned before timing: json -> reason
     tile_pruned: dict[str, str] = field(default_factory=dict)
 
     @property
@@ -151,16 +156,20 @@ class KernelAutotuner:
     CPU the wall-clock of one eager call.  A custom
     ``measure`` hook replaces the timing (unit tests).  On the card,
     candidates over the per-block shared-memory limit are pruned before any
-    launch; ``smem_limit`` overrides the limit read from the card.
-    The default block sizes win unless a candidate is faster by more than
-    ``TOLERANCE`` (the reference takes the fastest outright).
+    launch; ``smem_limit`` overrides the limit read from the card.  With
+    ``tile_check`` (the default) candidates misaligned to the kernels' tiles
+    or refused by their launch are pruned before timing too, unless that
+    would empty the sweep.  The default block sizes win unless a candidate
+    is faster by more than ``TOLERANCE`` (the reference takes the fastest
+    outright).
     """
 
     def __init__(self, candidates: dict[str, list[dict[str, int]]] | None = None,
                  runs: int = 2,
                  measure: Callable[[Callable, tuple], float] | None = None,
                  smem_limit: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 tile_check: bool = True):
         self.device = resolve_device(device)
         self.candidates = dict(DEFAULT_CANDIDATES)
         if candidates:
@@ -169,6 +178,7 @@ class KernelAutotuner:
         self.measure = measure
         self.smem_limit = (smem_limit if smem_limit is not None
                            else card_smem_limit(self.device))
+        self.tile_check = tile_check
         self.records: dict[tuple[str, str, str], TuneRecord] = {}
         # Measurements are taken on one device and are independent of the
         # emulated resource (speed factors scale uniformly), so trial tables
@@ -226,14 +236,10 @@ class KernelAutotuner:
         pruned: dict[str, float] = {}
         kept = candidates
         if self.smem_limit is not None:
-            from .ops import smem_footprint   # lazy: ops builds graph nodes
-            kept = []
-            for params in candidates:
-                nbytes = smem_footprint(kernel, params, args, options)
-                if nbytes > self.smem_limit:
-                    pruned[json.dumps(params, sort_keys=True)] = float(nbytes)
-                else:
-                    kept.append(params)
+            from ..analysis.kernel_smem import lint_candidates  # lazy: cycle
+            kept, pruned_b, _ = lint_candidates(
+                kernel, candidates, args, self.smem_limit, options)
+            pruned = {k: float(v) for k, v in pruned_b.items()}
             if not kept:
                 sizes = "; ".join(f"{k} -> {v:.0f}B"
                                   for k, v in sorted(pruned.items()))
@@ -241,6 +247,18 @@ class KernelAutotuner:
                     f"autotune: every candidate of {kernel} {shape_key} "
                     f"exceeds the {self.smem_limit}B shared-memory limit: "
                     f"{sizes}")
+
+        tile_pruned: dict[str, str] = {}
+        if self.tile_check:
+            from ..analysis.tiling import misaligned_candidates
+            flagged = misaligned_candidates(kernel, kept, args, options)
+            aligned = [p for p in kept
+                       if json.dumps(p, sort_keys=True) not in flagged]
+            # the analysis narrows a sweep but never empties it: with no
+            # admissible candidate left, the flagged ones are timed (and a
+            # refused one raises at its launch)
+            if aligned and flagged:
+                kept, tile_pruned = aligned, flagged
 
         trials = self._trials.setdefault((kernel, shape_key), {})
         for params in kept:
@@ -262,7 +280,8 @@ class KernelAutotuner:
                          default_time_s=admissible.get(dkey, float("nan")),
                          trials=admissible, pruned=pruned,
                          vmem_limit=(float(self.smem_limit)
-                                     if self.smem_limit is not None else None))
+                                     if self.smem_limit is not None else None),
+                         tile_pruned=tile_pruned)
         self.records[key] = rec
         return rec
 
@@ -350,18 +369,6 @@ class KernelAutotuner:
 
 _SERVING_PARAMS: dict[str, dict[str, int]] = {}
 
-# the second-minor tile of a dtype by its item size (the reference's
-# ``analysis/tiling.min_tile``): 8 for fp32, 16 for bf16, 32 for int8
-_SUBLANE_BY_ITEMSIZE = {4: 8, 2: 16, 1: 32}
-
-
-def min_sublane(dtype: str | torch.dtype) -> int:
-    """The alignment a tuned block size must keep in ``dtype``."""
-    if isinstance(dtype, str):
-        dtype = getattr(torch, dtype)
-    return _SUBLANE_BY_ITEMSIZE.get(dtype.itemsize, 8)
-
-
 def kernel_for_params(params: dict) -> str | None:
     """Map a tuned-params dict to the kernel it configures by exact
     parameter-name match ({block_q, block_k} -> flash_attention, ...).
@@ -379,10 +386,13 @@ def adopt_tuned_params(db, *, dtype="float32") -> dict[str, dict[str, int]]:
 
     Walks every record's ``tuned_params`` in deterministic order (sorted
     resources, blocks in order, sorted node names; later entries win),
-    rejects a candidate whose values are not positive multiples of
-    ``dtype``'s tile alignment (:func:`min_sublane`), and installs the
-    survivors.  Returns the adopted ``{kernel: params}`` mapping."""
-    sublane = min_sublane(dtype)
+    rejects a candidate whose values are not positive integers or that the
+    Hopper kernel's route for ``dtype`` would pad
+    (``analysis.tiling.misaligned_params``: bf16 flash ``block_q`` a
+    multiple of 32 and ``block_k`` of 64, bf16 decode ``block_k`` of 64,
+    bf16 SSD ``chunk`` of 16; the fp32 routes take any size), and installs
+    the survivors.  Returns the adopted ``{kernel: params}`` mapping."""
+    from ..analysis.tiling import misaligned_params  # lazy: cycle
     adopted: dict[str, dict[str, int]] = {}
     records = getattr(db, "records", {})
     for rname in sorted(records):
@@ -393,8 +403,9 @@ def adopt_tuned_params(db, *, dtype="float32") -> dict[str, dict[str, int]]:
                 kernel = kernel_for_params(params)
                 if kernel is None:
                     continue
-                if all(isinstance(v, int) and v > 0 and v % sublane == 0
-                       for v in params.values()):
+                if all(isinstance(v, int) and v > 0
+                       for v in params.values()) and \
+                        not misaligned_params(kernel, params, dtype):
                     adopted[kernel] = params
     _SERVING_PARAMS.update(adopted)
     return adopted

@@ -31,6 +31,7 @@ from repro_torch.core.partition import PartitionLattice as TLattice
 from repro_torch.models import cnn_zoo
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))   # benchmarks/
+from benchmarks import bench_autotune_torch as tba  # noqa: E402
 from benchmarks import bench_elastic as jbe  # noqa: E402
 from benchmarks import bench_elastic_torch as tbe  # noqa: E402
 from benchmarks import bench_overhead_torch as tbo  # noqa: E402
@@ -304,6 +305,9 @@ def test_run_torch_exits_1_when_a_gate_fails(monkeypatch, capsys):
     monkeypatch.setattr(tbs, "smoke", lambda device="cuda": {
         "poisson": {"rel_err": 0.01}, "replan": {"swaps": 1}})
     monkeypatch.setattr(tbq.run, "failures", [], raising=False)
+    autotune = lambda quick=True, device="cuda": [("autotune/x", 1.0, 1)]  # noqa: E731
+    autotune.failures = []
+    monkeypatch.setattr(tba, "run", autotune)
     for fn in (tbp.scenario_throughput, tbp.scenario_batched,
                tbp.scenario_frontier_exact, tbp.scenario_frontier_constrained,
                tbp.scenario_frontier_scale, tbp.scenario_replan, tbp.perf_gate,
@@ -318,3 +322,52 @@ def test_run_torch_exits_1_when_a_gate_fails(monkeypatch, capsys):
         run_torch.main()
     assert exc.value.code == 1
     assert "FAILED gates: 4g/X" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_autotune_gates_pass_with_a_stub_measure(device):
+    """bench_autotune_torch's sweep -> DB -> query, and both pruning gates:
+    with every candidate timed alike the defaults win, so the shared-memory
+    gate's limit (the winners' largest footprint, SSD chunk 128's 58,368 B)
+    prunes chunk 256 before timing; the tiling gate prunes bf16 block_q
+    48; both winners come out bit-identical."""
+    rows = tba.run(device=device, measure=lambda fn, args: 1.0)
+    assert tba.run.failures == []
+    gate, tgate = tba.run.last_gate, tba.run.last_tiling_gate
+    assert gate["limit_bytes"] == 58368 and gate["all_winners_identical"]
+    assert gate["kernels"]["ssd_scan"]["pruned"] == {'{"chunk": 256}': 106496.0}
+    assert gate["kernels"]["flash_attention"]["pruned"] == {}
+    assert list(tgate["tile_pruned"]) == ['{"block_k": 64, "block_q": 48}']
+    assert tgate["misaligned_measured_unpruned"]
+    assert not tgate["misaligned_in_gated_trials"]
+    assert tgate["winner_identical"]
+    derived = {name: d for name, _, d in rows}
+    assert derived["autotune/db_records_tuned"] == 4
+    assert derived["autotune/smem_winner_identical"] is True
+
+
+def test_autotune_smem_gate_fails_when_the_largest_candidate_wins():
+    """The gate has teeth: when the last-timed, largest SSD chunk wins, the
+    winners' largest footprint prunes nothing and the gate fails."""
+    times = iter(0.5 ** i for i in range(100))     # each twice as fast
+    tba.run(device="meta", measure=lambda fn, args: next(times))
+    assert "smem_gate: no candidate pruned" in tba.run.failures
+
+
+def test_verify_smem_off_the_card_splits_without_launching():
+    report = tba.verify_smem("cpu")
+    assert report["limit_bytes"] == 232448 and report["ok"]
+    by_path = {(e["kernel"], e["path"]): e["candidates"]
+               for e in report["kernels"]}
+    gemma = by_path[("flash_attention", "gemma2-9b prefill")]
+    assert [(c["params"], c["admitted"]) for c in gemma] == [
+        ({"block_q": 64, "block_k": 64}, True),
+        ({"block_q": 128, "block_k": 64}, True),
+        ({"block_q": 128, "block_k": 128}, False),     # the default
+        ({"block_q": 256, "block_k": 64}, False)]      # the smallest pruned
+    assert gemma[3]["expected"] == "needs 270336 B of shared memory"
+    xlstm = by_path[("ssd_scan", "xlstm-125m mLSTM")]
+    assert xlstm[-1]["params"] == {"chunk": 256}
+    assert "chunk <= 128 with P and N <= 384" in xlstm[-1]["expected"]
+    assert not any("launched" in c for cands in by_path.values()
+                   for c in cands)

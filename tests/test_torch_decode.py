@@ -43,8 +43,8 @@ from repro_torch.core.resources import CLOUD_VM, EDGE_BOX_1
 from repro_torch.kernel_graph import decode_graph
 from repro_torch.kernels import KernelAutotuner
 from repro_torch.kernels import decode_attention as da_mod
-from repro_torch.kernels.ops import (decode_attention, decode_attention_node,
-                                     smem_footprint)
+from repro_torch.analysis.kernel_smem import kernel_smem_bytes
+from repro_torch.kernels.ops import decode_attention, decode_attention_node
 from repro_torch.kernels.substrate import DEFAULT_CANDIDATES, DEFAULT_PARAMS
 from repro_torch.runtime import PipelineExecutor
 
@@ -289,8 +289,8 @@ GRANITE_OPTS = {"cache_len": 4096, "kv_heads": 8, "head_dim": 128}
 ])
 def test_decode_smem_footprint(dtype, block_k, want):
     q = torch.empty(GRANITE_Q, dtype=dtype, device="meta")
-    assert smem_footprint("decode_attention", {"block_k": block_k}, (q,),
-                          GRANITE_OPTS) == want
+    assert kernel_smem_bytes("decode_attention", {"block_k": block_k}, (q,),
+                             GRANITE_OPTS) == want
 
 
 def test_decode_autotuner_prunes_before_measuring():

@@ -952,3 +952,67 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
         assert _rel(got, want) <= 1e-3
         clen += 1
     assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]
+
+
+# -- the analysis passes on the card ---------------------------------------------
+def test_verify_smem_holds_the_analysis_at_the_paths_shapes(cuda):
+    """Every candidate the shared-memory and tiling analyses admit at the
+    paths' full-width shapes launches (the C entry points refuse any other
+    footprint figure), and each one they prune is refused with the same
+    byte count or reason."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks import bench_autotune_torch as ba
+
+    report = ba.verify_smem(cuda)
+    assert report["limit_bytes"] == card_smem_limit(cuda)
+    cands = [c for e in report["kernels"] for c in e["candidates"]]
+    assert all(c["agrees"] for c in cands), [c for c in cands
+                                             if not c["agrees"]]
+    assert any(not c["admitted"] for c in cands)
+    assert all(c["launched"] == c["admitted"] for c in cands)
+    assert all(e["static_smem"] + c["smem_bytes"] <= report["limit_bytes"]
+               for e in report["kernels"] for c in e["candidates"]
+               if c["admitted"])
+
+
+def test_lint_cli_reads_the_cards_limit(cuda, capsys):
+    from repro_torch.analysis.cli import main
+    from repro_torch.analysis.kernel_smem import H100_SMEM_PER_BLOCK
+    limit = card_smem_limit(cuda)
+    assert main(["--strict", "kernels", "tiling"]) == 0
+    assert f"(limit {limit} B)" in capsys.readouterr().out
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert limit == H100_SMEM_PER_BLOCK
+
+
+def test_fx_lint_captures_kernel_blocks_on_the_card(cuda):
+    """SCN503 on the card: the demo graph's kernel-bearing blocks capture;
+    a kernel-bearing block that reads a value back to the host traces on
+    meta but cannot be captured."""
+    from repro_torch.analysis.fx_lint import lint_blocks
+    from repro_torch.core import LayerNode, linear_graph
+    from repro_torch.kernels.ops import flash_attention_node, ssd_scan_node
+
+    g = linear_graph("demo", TensorSpec((1, 256, 4, 80), torch.bfloat16),
+                     [flash_attention_node("attn", device=cuda),
+                      ssd_scan_node("ssd", state_dim=64, device=cuda)])
+    launched = fa_mod.launches, ssd_mod.launches
+    assert lint_blocks(fuse_blocks(g), device=cuda) == []
+    assert fa_mod.launches > launched[0] and ssd_mod.launches > launched[1]
+
+    def host_read(x):
+        if x.is_meta:
+            return x
+        return x * x.sum().item()
+
+    g = linear_graph("sync", TensorSpec((4, 8), torch.float32),
+                     [LayerNode("k", "attention", apply=host_read,
+                                kernel="flash_attention")])
+    diags = lint_blocks(fuse_blocks(g), device=cuda)
+    assert [(d.code, d.severity) for d in diags] == [("SCN503", "error")]
+    assert "cannot be captured" in diags[0].message
+    assert lint_blocks(fuse_blocks(g)) == []        # meta alone: clean
+    assert torch.equal(torch.ones(2, device=cuda) + 1,
+                       torch.full((2,), 2.0, device=cuda))

@@ -22,8 +22,9 @@ from repro_torch.core.graph import TensorSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.analysis.kernel_smem import kernel_smem_bytes
 from repro_torch.kernels.ops import (flash_attention, flash_attention_node,
-                                     smem_footprint, ssd_scan, ssd_scan_node)
+                                     ssd_scan, ssd_scan_node)
 from repro_torch.kernels.substrate import (DEFAULT_CANDIDATES,
                                            KernelAutotuner, pad_axis_to,
                                            round_up)
@@ -191,7 +192,7 @@ def test_wrappers_trace_on_meta():
 def test_smem_footprint(kernel, params, dtype, hd, want):
     x = torch.empty(1, 4096, 32, hd, dtype=getattr(torch, dtype),
                     device="meta")
-    assert smem_footprint(kernel, params, (x,), {"state_dim": 64}) == want
+    assert kernel_smem_bytes(kernel, params, (x,), {"state_dim": 64}) == want
 
 
 @pytest.mark.parametrize("shape,N,chunk,dtype,L,want", [
@@ -236,7 +237,7 @@ ptxas info    : Used 252 registers, used 0 barriers, 416 bytes cmem[0]
 ptxas info    : Compiling entry function '{SIMT}' for 'sm_90a'
 ptxas info    : Function properties for {SIMT}
     32 bytes stack frame, 28 bytes spill stores, 28 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Used 128 registers, used 1 barriers, 64 bytes smem, 420 bytes cmem[0]
 """
 SASS = f"""\
 \t\tFunction : {MMA80}
@@ -251,12 +252,15 @@ SASS = f"""\
 
 
 def test_build_reports_parse_per_kernel():
-    """ptxas registers and spills, and SASS opcode counts, per kernel; the
-    bf16 instances grouped by their head_dim."""
+    """ptxas registers, spills and static shared memory (0 where the log
+    names none), and SASS opcode counts, per kernel; the bf16 instances
+    grouped by their head_dim."""
     report = _build.parse_ptxas(PTXAS_LOG)
     assert report == {
-        MMA80: {"spill_stores": 0, "spill_loads": 0, "registers": 252},
-        SIMT: {"spill_stores": 28, "spill_loads": 28, "registers": 128}}
+        MMA80: {"spill_stores": 0, "spill_loads": 0, "registers": 252,
+                "smem": 0},
+        SIMT: {"spill_stores": 28, "spill_loads": 28, "registers": 128,
+               "smem": 64}}
     ops = _build.parse_sass(SASS)
     assert ops[MMA80] == {"LDC": 1, "HMMA": 2, "BRA": 1}
     assert ops[SIMT] == {"FFMA": 1, "EXIT": 1}
