@@ -122,6 +122,31 @@ at the lengths of the path's heaviest decode step.
 The ``paper`` phase also runs ``bench_partitions_torch``'s DAG gate, whose
 enc-dec LM must launch flash_attention (the zoo's benchmarks none).
 
+The ``train`` phase follows ``lm_phase``: training at full size, through
+``launch/steps.py``'s train step (the loss, its gradient, AdamW in place).
+``flash_attention`` and ``ssd_scan`` run their kernels forward and, as
+autograd Functions, the plain version's gradient backward.  xlstm-125m
+trains with ``examples/train_small_lm_torch.py``'s settings for
+``TRAIN_XLSTM`` steps at 8 × 512 tokens, checkpointed every 20 steps, and
+must lower its loss and launch ``ssd_scan``'s wide route and its plain
+backward; a fresh model then resumes from the step-20 checkpoint through
+``TrainSupervisor`` for ``RESUME_STEPS`` steps, its state equal to the
+saved one bit for bit and its losses within ``RESUME_TOL`` of the
+uninterrupted run's.  zamba2-2.7b as registered (remat, the loss in chunks
+of 1024) takes one loss and gradient with the kernels, with the plain
+versions in both directions, with the kernels' gradients cut and with the
+plain versions in fp32 (loss within ``LM_TOL``; the gradient tree within
+``TRAIN_GRAD_TOL``, which the cut run must exceed; each leaf only the
+kernels' gradients reach within ``TRAIN_LEAF_TOL``), then ``TRAIN_ZAMBA``
+steps at 2 × 2048 tokens that must launch both kernels and their plain
+backward.  Each model's step time (forward and loss, backward, AdamW; CUDA
+events), tokens/s, 6·N·tokens rate, peak memory and launches by direction
+are printed beside the card's name and power limit.  Last, at the path's
+shapes with launches counted from 0, each kernel's forward is held against
+the plain version (``TOL``), each Function's gradients against plain
+autograd's (``FN_GRAD_TOL``), and one plain backward is timed; the kernel
+rows carry the phase's launches as ``launches_train``.
+
 The ``analysis`` phase runs ``python -m repro_torch.analysis --strict`` over
 every target with the card's shared-memory limit (the kernels' candidate
 footprints and tile alignment at the paths' full-width shapes, the graph
@@ -944,14 +969,18 @@ def decode_lengths():
 
 
 def kernel_launches() -> dict:
-    """The wrappers' launch counts now, the SSD's wide route's apart."""
+    """The wrappers' launch counts now, the SSD's wide route's apart, and
+    the plain versions' recomputations the autograd Functions' backward
+    runs (training)."""
     from repro_torch.kernels import decode_attention as da_mod
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     return {"flash_attention": fa_mod.launches,
             "decode_attention": da_mod.launches,
             "ssd_scan": ssd_mod.launches,
-            "ssd_scan wide route": ssd_mod.wide_launches}
+            "ssd_scan wide route": ssd_mod.wide_launches,
+            "flash_attention backward (plain)": fa_mod.backward_launches,
+            "ssd_scan backward (plain)": ssd_mod.backward_launches}
 
 
 def heaviest(steps: list) -> list[int]:
@@ -2104,6 +2133,518 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
     return rows
 
 
+# training (slice E): xlstm-125m as examples/train_small_lm_torch.py trains
+# it, at the reference's batch of 8 and 512 tokens (four mLSTM chunks of
+# 128), checkpointed every 20 steps and resumed from the step-20
+# checkpoint; zamba2-2.7b as registered (remat, the loss in chunks of 1024)
+# at 2 x 2048 tokens
+TRAIN_XLSTM = dict(steps=40, batch=8, seq=512, ckpt_every=20, peak_lr=3e-3,
+                   warmup=20, weight_decay=0.01)
+TRAIN_ZAMBA = dict(steps=3, batch=2, seq=2048)
+# the resumed run's losses against the uninterrupted run's, relative:
+# decided before the first run on the card; the restored state is already
+# held bit for bit, so a few resumed steps show the run goes on as before
+RESUME_TOL = 1e-2
+RESUME_STEPS = 5
+# an autograd Function's gradients against plain autograd's through the
+# plain version on the same inputs (relative L2 per input): its backward is
+# that computation, so anything but rounding is a fault of the wiring
+FN_GRAD_TOL = 1e-3
+# zamba2-2.7b's gradient tree with the kernels against the plain versions'
+# (relative L2), and each leaf that only the kernels' gradients reach: set
+# near the geometric middle between the sound run's reading (tree 0.0945,
+# worst such leaf 0.157 on an H100) and that of the fault the autograd
+# Functions repair (the kernels' gradients cut: tree 0.992, each such leaf
+# 1), both read every run; the plain versions in bf16 lie 0.23 from the
+# same in fp32, so the sound reading is bf16's own rounding
+TRAIN_GRAD_TOL = 0.3
+TRAIN_LEAF_TOL = 0.4
+
+
+def zero_launches() -> None:
+    """Every count of :func:`kernel_launches` set to 0."""
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    fa_mod.launches = fa_mod.backward_launches = 0
+    ssd_mod.launches = ssd_mod.wide_launches = ssd_mod.backward_launches = 0
+    da_mod.launches = 0
+
+
+def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
+                on_step=None) -> tuple:
+    """Steps ``[start, stop)`` of ``step_fn`` on the pipeline's batches;
+    each step, the loss and AdamW timed apart with CUDA events (the
+    backward is the rest of the step).  ``sup`` checkpoints as the trainer
+    does (the state after step + 1 steps, labelled so); ``on_step(step,
+    state)`` runs after each.  Returns (params, opt, numbers)."""
+    import time
+
+    import torch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import device_batch
+
+    total, fwd, upd = StepClock(), StepClock(), StepClock()
+    real_apply = steps_mod.apply_updates
+    model.loss = fwd.wrap(model.loss)
+    steps_mod.apply_updates = upd.wrap(real_apply)
+    timed = total.wrap(step_fn)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for step in range(start, stop):
+            batch = device_batch(model.cfg, data.global_batch_at(step),
+                                 model.device)
+            t0 = time.perf_counter()
+            params, opt, metrics = timed(params, opt, batch)
+            losses.append(metrics["loss"])
+            if sup is not None:
+                sup.after_step(step + 1, {"p": params, "o": opt},
+                               time.perf_counter() - t0)
+            if on_step is not None:
+                on_step(step, {"p": params, "o": opt})
+        if sup is not None:
+            sup.ckpt.wait()
+    finally:
+        del model.loss
+        steps_mod.apply_updates = real_apply
+    step_ms, fwd_ms, opt_ms = total.ms(), fwd.ms(), upd.ms()
+    return params, opt, dict(
+        losses=[float(v) for v in losses],
+        step_ms=statistics.median(step_ms), fwd_ms=statistics.median(fwd_ms),
+        opt_ms=statistics.median(opt_ms),
+        bwd_ms=statistics.median(t - f - o for t, f, o in
+                                 zip(step_ms, fwd_ms, opt_ms)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def report_training(card, label, cfg, run, batch, seq, peak_flops,
+                    launches) -> None:
+    """Prints a training run's numbers, each beside the card."""
+    from repro_torch.launch.steps import count_params
+    n = count_params(cfg)
+    tokens = batch * seq
+    rate = 6.0 * n * tokens / (run["step_ms"] / 1e3)
+    print(f"[{card}] train {label}: {n / 1e9:.4f}e9 parameters; batch "
+          f"{batch} x {seq} tokens; step {run['step_ms']:.1f} ms (forward + "
+          f"loss {run['fwd_ms']:.1f}, backward {run['bwd_ms']:.1f}, AdamW "
+          f"{run['opt_ms']:.1f}; CUDA-event medians over "
+          f"{len(run['losses'])} steps); {tokens / run['step_ms'] * 1e3:.0f} "
+          f"tokens/s; 6 N tokens / step = {rate / 1e12:.2f} TFLOP/s, "
+          f"{rate / peak_flops:.2%} of {peak_flops / 1e12:.0f}; peak memory "
+          f"{run['peak_gb']:.2f} GB; launches {launches}")
+
+
+def train_xlstm(dev, card, peak_flops, ckpt_dir) -> dict:
+    """xlstm-125m trained at full size for ``TRAIN_XLSTM["steps"]`` steps
+    and resumed from its step-20 checkpoint for ``RESUME_STEPS`` steps;
+    raises unless the loss falls, the wide ssd_scan route and its plain
+    backward run, the restored state equals the saved one bit for bit and
+    the resumed losses agree within ``RESUME_TOL``."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, cosine_with_warmup, init_state
+    from repro_torch.runtime.ft import TrainSupervisor
+
+    t = TRAIN_XLSTM
+    label = "xlstm-125m"
+    cfg = get_config("xlstm-125m").replace(remat=False, loss_seq_chunk=None)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=t["seq"],
+                                  global_batch=t["batch"], seed=SEED))
+    adamw = AdamWConfig(lr=cosine_with_warmup(t["peak_lr"], t["warmup"],
+                                              t["steps"]),
+                        weight_decay=t["weight_decay"])
+
+    def fresh():
+        model = build_model(cfg, device=dev)
+        params = model.init(seed=SEED, dtype=torch.bfloat16)
+        return model, params, init_state(params)
+
+    model, params, opt = fresh()
+    sup = TrainSupervisor(CheckpointManager(ckpt_dir, keep=2),
+                          ckpt_every=t["ckpt_every"])
+    saved = {}
+
+    def keep(step, state):
+        if step + 1 == t["ckpt_every"]:
+            saved.update(L.tree_map(lambda a: a.clone(), state))
+
+    zero_launches()
+    params, opt, run = train_steps(model, make_train_step(model, adamw),
+                                   params, opt, data, 0, t["steps"], sup,
+                                   keep)
+    launches = kernel_launches()
+    report_training(card, label, cfg, run, t["batch"], t["seq"], peak_flops,
+                    launches)
+    losses = run["losses"]
+    first, last = (statistics.mean(losses[:5]),
+                   statistics.mean(losses[-5:]))
+    print(f"[{card}] train {label}: loss {first:.4f} (first 5 steps) -> "
+          f"{last:.4f} (last 5); checkpoints {sup.ckpt.steps()}")
+    if not last < first:
+        raise RuntimeError(f"train {label}: the loss did not fall "
+                           f"({first:.4f} -> {last:.4f})")
+    if launches["ssd_scan wide route"] <= 0 or \
+            launches["ssd_scan backward (plain)"] <= 0:
+        raise RuntimeError(f"train {label}: the wide ssd_scan route or its "
+                           f"plain backward did not run: {launches}")
+    del model, params, opt
+
+    # a fresh model resumes from the step-20 checkpoint, alone in a
+    # directory of its own (the run also saved its last step)
+    resume_dir = os.path.join(ckpt_dir, "resume")
+    os.makedirs(resume_dir)
+    name = os.path.basename(sup.ckpt._path(t["ckpt_every"]))
+    os.replace(os.path.join(ckpt_dir, name), os.path.join(resume_dir, name))
+    model, params, opt = fresh()
+    state, start = TrainSupervisor(
+        CheckpointManager(resume_dir, keep=2),
+        ckpt_every=t["ckpt_every"]).resume_or_init(
+            lambda: {"p": params, "o": opt}, like={"p": params, "o": opt})
+    if start != t["ckpt_every"]:
+        raise RuntimeError(f"train {label}: resumed at step {start}, not "
+                           f"{t['ckpt_every']}")
+    same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in
+               zip(L.tree_leaves(state), L.tree_leaves(saved)))
+    if not same or len(L.tree_leaves(state)) != len(L.tree_leaves(saved)):
+        raise RuntimeError(f"train {label}: the restored state differs "
+                           "from the one saved at step 20")
+    del saved
+    stop = start + RESUME_STEPS
+    _, _, resumed = train_steps(model, make_train_step(model, adamw),
+                                state["p"], state["o"], data, start, stop)
+    diffs = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                 losses[start:stop])]
+    print(f"[{card}] train {label}: resumed at step {start} from "
+          f"{ckpt_dir}, parameters and moments equal to the saved ones bit "
+          f"for bit; steps {start}-{stop - 1}: largest relative loss "
+          f"difference {max(diffs):.3g} (bound {RESUME_TOL}); resumed step "
+          f"{resumed['step_ms']:.1f} ms")
+    if not max(diffs) <= RESUME_TOL:
+        raise RuntimeError(f"train {label}: resumed losses differ by "
+                           f"{max(diffs):.3g} (bound {RESUME_TOL})")
+    return dict(launches=launches, run=run, first=first, last=last,
+                resume_diff=max(diffs))
+
+
+def _cut_gradients():
+    """The kernels launched outside their autograd Functions, as a context
+    manager: the outputs carry no ``grad_fn``, so every gradient stops at
+    the kernels (the fault the Functions repair) while the loss stays as
+    it was."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    @contextlib.contextmanager
+    def patched():
+        saved = fa_mod.FlashAttention, ssd_mod.SsdScan
+        fa_mod.FlashAttention = types.SimpleNamespace(apply=fa_mod._launch)
+        ssd_mod.SsdScan = types.SimpleNamespace(apply=ssd_mod._launch)
+        try:
+            yield
+        finally:
+            fa_mod.FlashAttention, ssd_mod.SsdScan = saved
+
+    return patched()
+
+
+def grad_gap(got, want) -> tuple[float, dict]:
+    """Relative L2 of the gradient tree ``got`` against ``want``, and each
+    leaf's own by path (a zero ``want`` leaf is left out)."""
+    from repro_torch.models import layers as L
+    num = den = 0.0
+    leaves = {}
+    for (path, g), w in zip(_paths(got), L.tree_leaves(want)):
+        e = (g.float() - w.float()).square().sum().item()
+        n = w.float().square().sum().item()
+        num, den = num + e, den + n
+        if n > 0:
+            leaves[path] = (e / n) ** 0.5
+    return (num / den) ** 0.5, leaves
+
+
+def train_zamba(dev, card, peak_flops) -> dict:
+    """zamba2-2.7b at full size.  One loss and gradient on step 0's batch
+    four ways: with the kernels, with their plain versions in both
+    directions, with the kernels' gradients cut (the fault the autograd
+    Functions repair) and with the plain versions in fp32 on the same
+    weights (bf16's own noise).  Raises unless the kernel run's loss lies
+    within ``LM_TOL`` of the plain run's, its gradient tree within
+    ``TRAIN_GRAD_TOL`` and each leaf that only the kernels' gradients reach
+    within ``TRAIN_LEAF_TOL``, while the cut run's tree lies outside
+    ``TRAIN_GRAD_TOL``.  Then ``TRAIN_ZAMBA["steps"]`` train steps that must
+    launch flash_attention and ssd_scan and run their plain backward."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, init_state
+
+    t = TRAIN_ZAMBA
+    label = "zamba2-2.7b"
+    model, params = lm_model(label, dev)
+    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=t["seq"],
+                                  global_batch=t["batch"], seed=SEED))
+    batch = device_batch(model.cfg, data.global_batch_at(0), dev)
+    loss_k, _, grads_k = value_and_grad(model.loss, params, batch)
+    with _plain_kernels():
+        loss_p, _, grads_p = value_and_grad(model.loss, params, batch)
+    with _cut_gradients():
+        _, _, grads_c = value_and_grad(model.loss, params, batch)
+    # the leaves only the kernels' gradients reach: zero when they are cut
+    fed = [path for (path, c), p in zip(_paths(grads_c),
+                                        L.tree_leaves(grads_p))
+           if not c.any() and p.any()]
+    sound, sound_leaf = grad_gap(grads_k, grads_p)
+    fault, fault_leaf = grad_gap(grads_c, grads_p)
+    del grads_c
+    wide = L.tree_map(lambda a: a.float(), params)
+    with _plain_kernels():
+        _, _, grads_f = value_and_grad(model.loss, wide, batch)
+    del wide
+    noise, noise_leaf = grad_gap(grads_p, grads_f)
+    kernel_f, _ = grad_gap(grads_k, grads_f)
+    del grads_k, grads_p, grads_f
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(sound_leaf, key=sound_leaf.get)
+    print(f"[{card}] train {label} vs the plain versions (no kernel in "
+          f"either direction), step 0's batch: loss {loss_k.item():.5f} vs "
+          f"{loss_p.item():.5f}, relative {loss_rel:.3g} (bound {LM_TOL}); "
+          f"gradient tree relative L2: kernels {sound:.4g} (bound "
+          f"{TRAIN_GRAD_TOL}), the kernels' gradients cut {fault:.4g} (must "
+          f"exceed {TRAIN_GRAD_TOL}); against the plain versions in fp32: "
+          f"plain bf16 {noise:.4g}, kernels {kernel_f:.4g} (not checked); "
+          f"worst leaf {worst} {sound_leaf[worst]:.4g} (plain bf16 vs fp32 "
+          f"{noise_leaf.get(worst, 0.0):.4g})")
+    print(f"[{card}] train {label}: {len(fed)} leaves only the kernels' "
+          f"gradients reach (bound {TRAIN_LEAF_TOL} each), kernels / cut / "
+          f"plain bf16 vs fp32: " + ", ".join(
+              f"{path} {sound_leaf[path]:.4g} / {fault_leaf[path]:.4g} / "
+              f"{noise_leaf.get(path, 0.0):.4g}" for path in fed))
+    if not loss_rel <= LM_TOL:
+        raise RuntimeError(f"train {label}: loss differs from the plain "
+                           f"run by {loss_rel:.3g}")
+    if not sound <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train {label}: gradients differ from the plain "
+                           f"run by {sound:.4g} (bound {TRAIN_GRAD_TOL})")
+    if not fault > TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train {label}: with the kernels' gradients cut "
+                           f"the tree reads {fault:.4g}, inside the bound "
+                           f"{TRAIN_GRAD_TOL}: the check cannot see the "
+                           "fault")
+    if not fed:
+        raise RuntimeError(f"train {label}: no leaf's gradient vanished with "
+                           "the kernels' gradients cut")
+    over = {p: sound_leaf[p] for p in fed if not sound_leaf[p] <=
+            TRAIN_LEAF_TOL}
+    if over:
+        raise RuntimeError(f"train {label}: leaves the kernels' gradients "
+                           f"reach differ from the plain run by more than "
+                           f"{TRAIN_LEAF_TOL}: {over}")
+
+    opt = init_state(params)
+    zero_launches()
+    params, opt, run = train_steps(model, make_train_step(model,
+                                                          AdamWConfig()),
+                                   params, opt, data, 0, t["steps"])
+    launches = kernel_launches()
+    report_training(card, label, model.cfg, run, t["batch"], t["seq"],
+                    peak_flops, launches)
+    print(f"[{card}] train {label}: losses "
+          + ", ".join(f"{v:.5f}" for v in run["losses"]))
+    for k in ("flash_attention", "flash_attention backward (plain)",
+              "ssd_scan", "ssd_scan backward (plain)"):
+        if launches[k] <= 0:
+            raise RuntimeError(f"train {label}: no {k} launch in the steps")
+    if not all(math.isfinite(v) for v in run["losses"]):
+        raise RuntimeError(f"train {label}: a loss is not finite")
+    del model, params, opt
+    return dict(launches=launches, run=run, loss_rel=loss_rel,
+                grad_rel=sound, grad_cut=fault, grad_noise=noise)
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) in ``layers.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _paths(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def train_kernel_checks(dev) -> dict:
+    """Each autograd Function at the train path's shapes, its launches
+    counted from 0: the kernel's forward held against the plain version
+    (``TOL``, as the kernel rows), the Function's gradients against plain
+    autograd's through the plain version on the same inputs
+    (``FN_GRAD_TOL``, relative L2 per input), and one backward timed (the
+    plain version recomputed from the saved inputs and differentiated, the
+    graph kept between calls).  Raises on a disagreement or a count that
+    is not one launch each way."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype).requires_grad_()
+
+    def grad_gaps(name, outs, plain_outs, inputs, names, seeds):
+        """The Function's gradients and plain autograd's, relative L2."""
+        got = torch.autograd.grad(outs, inputs, seeds, retain_graph=True)
+        want = torch.autograd.grad(plain_outs, inputs, seeds)
+        gaps = {}
+        for n, g, w in zip(names, got, want):
+            gaps[n] = rel_err(g, w)
+            if not gaps[n] <= FN_GRAD_TOL or not w.abs().sum() > 0:
+                raise RuntimeError(f"{name}: the Function's d{n} differs from "
+                                   f"plain autograd's by {gaps[n]:.3g} "
+                                   f"(bound {FN_GRAD_TOL})")
+        return gaps
+
+    def counted(name, *keys):
+        seen = {k: kernel_launches()[k] for k in keys}
+        if any(v != 1 for v in seen.values()):
+            raise RuntimeError(f"{name}: launches {seen}, not one each way")
+        return seen
+
+    zc, xc = TRAIN_ZAMBA, TRAIN_XLSTM
+    out = {}
+    zero_launches()
+    q, k, v = (randn(zc["batch"], zc["seq"], 32, 80) for _ in range(3))
+    o = fa_mod.flash_attention(q, k, v, causal=True)
+    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+    err = check_close("flash_attention (train path) vs plain", o, o_ref)
+    go = randn(*o.shape).detach()
+    gaps = grad_gaps("flash_attention", o, o_ref, (q, k, v), "qkv", go)
+    del o_ref
+    out["flash_attention"] = dict(
+        shapes=f"q = k = v {tuple(q.shape)} bf16 causal (zamba2-2.7b's "
+               "shared attention)", err=err, gaps=gaps,
+        launches=counted("flash_attention", "flash_attention",
+                         "flash_attention backward (plain)"),
+        ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
+                                               retain_graph=True), runs=5))
+    del q, k, v, o, go
+
+    def ssd_case(name, x, la, b, c, shared, note, *wide):
+        zero_launches()
+        B_, S_, H_, _ = x.shape
+        N_ = b.shape[-1]
+        inputs = (x, la, b, c)
+        views = [t.expand(B_, S_, H_, N_) for t in (b, c)]
+        y, fin = ssd_mod.ssd_scan(x, la, *views, chunk=128)
+        y_ref, fin_ref = ref.ssd_ref(x, la, *views, chunk=128)
+        err = check_close(f"{name} (train path) y vs plain", y, y_ref)
+        fin_err = check_close(f"{name} (train path) final state vs plain",
+                              fin, fin_ref)
+        seeds = (randn(*y.shape).detach(), randn(*fin.shape).detach())
+        gaps = grad_gaps(name, (y, fin), (y_ref, fin_ref), inputs,
+                         ("x", "log_a", "b", "c"), seeds)
+        del y_ref, fin_ref
+        out[name] = dict(
+            shapes=f"x {tuple(x.shape)} bf16, b, c ({B_}, {S_}, "
+                   f"{1 if shared else H_}, {N_}) bf16"
+                   f"{' expanded over the heads' if shared else ''}, log_a "
+                   f"fp32, chunk 128 ({note}); final-state max abs err "
+                   f"{fin_err:.4g}", err=err, gaps=gaps,
+            launches=counted(name, "ssd_scan", "ssd_scan backward (plain)",
+                             *wide),
+            ms=time_ms(lambda: torch.autograd.grad(
+                (y, fin), inputs, seeds, retain_graph=True), runs=5))
+
+    # zamba2-2.7b's Mamba-2: b, c shared over the 80 heads, c scaled so
+    # that c . b is of unit size
+    B_, S_, H_, N_ = zc["batch"], zc["seq"], 80, 64
+    ssd_case("ssd_scan", randn(B_, S_, H_, 64),
+             (-torch.rand(B_, S_, H_, generator=gen, device=dev) * 0.1)
+             .requires_grad_(), randn(B_, S_, 1, N_),
+             randn(B_, S_, 1, N_, scale=N_ ** -0.5), True,
+             "zamba2-2.7b's Mamba-2")
+    # xlstm-125m's mLSTM: b = k / sqrt(384), c = q, log_a = log sigmoid(f)
+    B_, S_, H_, P = xc["batch"], xc["seq"], 4, 384
+    f_g = torch.randn(B_, S_, H_, generator=gen, device=dev)
+    ssd_case("ssd_scan_mlstm_hd384", randn(B_, S_, H_, P),
+             F.logsigmoid(f_g).requires_grad_(),
+             randn(B_, S_, H_, P, scale=P ** -0.5), randn(B_, S_, H_, P),
+             False, "xlstm-125m's mLSTM, the wide route",
+             "ssd_scan wide route")
+    return out
+
+
+def train_phase(dev, card, peak_flops, out_dir) -> dict:
+    """Training at full size on the card: xlstm-125m (40 steps, checkpoint
+    and resume), zamba2-2.7b (held against the plain versions, 3 steps),
+    then one plain backward of each kernel timed at the path's shapes.
+    Returns, by kernel row name, the phase's launches by direction and the
+    plain backward's time."""
+    import shutil
+    import tempfile
+    import time
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = out_dir or tempfile.gettempdir()
+    os.makedirs(root, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    try:
+        xl = train_xlstm(dev, card, peak_flops, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)  # a 1.3 GB file
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train xlstm-125m: {time.perf_counter() - t0:.1f} s of wall time")
+    t1 = time.perf_counter()
+    zb = train_zamba(dev, card, peak_flops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train zamba2-2.7b: {time.perf_counter() - t1:.1f} s of wall "
+          "time")
+    bwd = train_kernel_checks(dev)
+    for name, row in bwd.items():
+        print(f"[{card}] {name} at {row['shapes']}: forward max abs err "
+              f"{row['err']:.4g} (tol {TOL} abs + {TOL} rel); the Function's "
+              f"gradients vs plain autograd's, relative L2 " + ", ".join(
+                  f"d{n} {g:.3g}" for n, g in row["gaps"].items())
+              + f" (bound {FN_GRAD_TOL}); launches {row['launches']}; one "
+              f"plain backward {row['ms']:.3f} ms (CUDA-event median of 5)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase: {time.perf_counter() - t0:.1f} s of wall time")
+    xlz, zbz = xl["launches"], zb["launches"]
+    return {
+        "flash_attention": dict(
+            forward=zbz["flash_attention"],
+            backward_plain=zbz["flash_attention backward (plain)"],
+            plain_backward_ms=bwd["flash_attention"]["ms"],
+            of=f"zamba2-2.7b's {TRAIN_ZAMBA['steps']} steps"),
+        "ssd_scan": dict(
+            forward=zbz["ssd_scan"],
+            backward_plain=zbz["ssd_scan backward (plain)"],
+            plain_backward_ms=bwd["ssd_scan"]["ms"],
+            of=f"zamba2-2.7b's {TRAIN_ZAMBA['steps']} steps"),
+        "ssd_scan_mlstm_hd384": dict(
+            forward=xlz["ssd_scan wide route"],
+            backward_plain=xlz["ssd_scan backward (plain)"],
+            plain_backward_ms=bwd["ssd_scan_mlstm_hd384"]["ms"],
+            of=f"xlstm-125m's {TRAIN_XLSTM['steps']} steps (the resumed "
+               "ones not counted)"),
+        "decode_attention": dict(forward=0, backward_plain=0,
+                                 of="training never decodes"),
+    }
+
+
 def rel_err(got, want) -> float:
     """Relative norm error of ``got`` against ``want`` (in float64)."""
     import torch
@@ -2584,7 +3125,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"decode phase: {time.perf_counter() - t0:.1f} s of wall time")
     kernels += lm_phase(dev, resources, net, args.out, prefill_db)
+    gc.collect()
     torch.cuda.empty_cache()
+    train = train_phase(dev, smi[0], peak_flops, args.out)
+    for r in kernels:
+        if r["name"] in train:
+            r["train"] = train[r["name"]]
 
     # the zoo path runs none of the hand-written kernels
     from repro_torch.kernels import decode_attention as da_mod
@@ -2644,6 +3190,7 @@ def main() -> int:
             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             **({"launches_of": of} if of else {}),
+            **({"launches_train": r["train"]} if "train" in r else {}),
             **({"launches_split": r["launches_split"]}
                if "launches_split" in r else {}),
             **r.get("build", {})})

@@ -6,7 +6,8 @@ tree of tensors on a given device.  Keys and dtypes are kept.  numpy has no
 bfloat16 of its own: arrays that came from JAX carry ``ml_dtypes``'
 ``bfloat16``, which is carried over bit for bit through a ``uint16`` view
 (without importing ``ml_dtypes``, which the card's host may lack).
-:func:`zoo_params_to_torch` carries a zoo net's weights into the layout of
+:func:`adamw_state_to_torch` carries the JAX package's AdamW state, and
+:func:`zoo_params_to_torch` a zoo net's weights into the layout of
 ``repro_torch.models.cnn_zoo``'s modules.
 """
 
@@ -41,6 +42,18 @@ def to_torch(tree: Any, device: str | torch.device = "cuda") -> Any:
     if isinstance(tree, tuple):
         return tuple(to_torch(v, device) for v in tree)
     return array_to_tensor(tree, device)
+
+
+def adamw_state_to_torch(state: dict, device: str | torch.device = "cuda"
+                         ) -> dict:
+    """The JAX package's AdamW state (``{"mu", "nu", "step"}``, its arrays
+    as numpy) as the port's ``optim.init_state`` layout on ``device``: fp32
+    moments and an int32 0-d step."""
+    return {"mu": to_torch(state["mu"], device),
+            "nu": to_torch(state["nu"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32,
+                                 device=resolve_device(device))}
 
 
 def zoo_params_to_torch(params: dict[str, dict[str, Any]],

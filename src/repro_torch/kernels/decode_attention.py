@@ -241,6 +241,13 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
         raise ValueError(f"window must be >= 1, got {window}")
     if block_k is not None and block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        # the kernel has no backward and decode never trains: a gradient
+        # would stop here unseen on the card
+        raise ValueError("decode_attention takes no input that requires "
+                         "grad while grad mode is on: the kernel has no "
+                         "backward (run decode under torch.no_grad())")
     if q.device.type in ("cpu", "meta"):
         return decode_attention_ref(q, k, v, lengths, softcap=softcap,
                                     window=window)

@@ -6,6 +6,13 @@ takes the plain PyTorch version (:func:`.ref.flash_attention_ref`) for
 tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
 launches a kernel or raises; it never falls back.  ``launches`` counts the
 kernel launches.
+
+The kernel has no backward.  When gradients are asked for (grad mode on
+and an input that requires grad), a CUDA call goes through
+:class:`FlashAttention`, whose forward launches the kernel and whose
+backward differentiates the plain version recomputed from the saved
+inputs, the function the reference's models differentiate;
+``backward_launches`` counts those recomputations.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from .ref import flash_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
 
 launches = 0
+backward_launches = 0
 
 MMA_HEAD_DIMS = range(16, 257, 16)     # head_dims of the bf16 route
 MAX_BLOCK_Q = 256                      # query rows of a CTA (bf16 route)
@@ -159,7 +167,31 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    block_q, block_k)
     return _launch(q, k, v, causal, window, softcap, block_q, block_k)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return _launch(q, k, v, causal, window, softcap, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        global backward_launches
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = flash_attention_ref(*inputs, **ctx.mask)
+            dq, dk, dv = torch.autograd.grad(o, inputs, grad)
+        backward_launches += 1
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _launch(q, k, v, causal, window, softcap, block_q, block_k):

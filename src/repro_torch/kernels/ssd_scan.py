@@ -8,6 +8,13 @@ kernel or raises; it never falls back.  ``launches`` counts calls that
 launched the kernel: the bf16 route's three passes count once;
 ``wide_launches`` counts those of them that took the wide route (P > 128
 or N > 64, the mLSTM's 384-wide heads).
+
+The kernel has no backward.  When gradients are asked for (grad mode on
+and an input that requires grad), a CUDA call goes through
+:class:`SsdScan`, whose forward launches the kernel and whose backward
+differentiates the plain version recomputed from the saved inputs, the
+function the reference's models differentiate; ``backward_launches``
+counts those recomputations.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from .substrate import card_smem_limit
 
 launches = 0
 wide_launches = 0
+backward_launches = 0
 
 MAX_CHUNK = 256         # bf16 route: csrc/ssd_scan.cu kMaxChunk
 # bf16 route up to 8 * kMaxPT and 16 * kMaxNK; beyond, the wide route
@@ -174,7 +182,38 @@ def ssd_scan(x, log_a, b, c, *, chunk=128):
         return ssd_ref(x, log_a, b, c, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, log_a, b, c)):
+        return SsdScan.apply(x, log_a, b, c, chunk)
     return _launch(x, log_a, b, c, chunk)
+
+
+class SsdScan(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward.  b and c
+    may be stride-0 views (head-shared maps): their gradients come back at
+    the view's shape, and autograd sums them through the expand."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, b, c, chunk):
+        ctx.save_for_backward(x, log_a, b, c)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _launch(x, log_a, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        global backward_launches
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, final = ssd_ref(*inputs, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in ((y, grad_y), (final, grad_final))
+                     if g is not None]
+            # c takes no part in the final state
+            grads = torch.autograd.grad([o for o, _ in pairs],
+                                        inputs, [g for _, g in pairs],
+                                        allow_unused=True)
+        backward_launches += 1
+        return (*grads, None)
 
 
 def _launch(x, log_a, b, c, chunk):

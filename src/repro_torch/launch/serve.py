@@ -6,7 +6,7 @@
 The port of ``repro/launch/serve.py``, with its flags and one more,
 ``--device`` (default ``cuda``: the kernels run on the card).  As there,
 ``--tiny`` is a ``store_true`` flag whose default is True, so the model is
-always the tiny one of :func:`tiny`.
+always the tiny one of :func:`.train.tiny`.
 """
 
 from __future__ import annotations
@@ -18,26 +18,7 @@ import numpy as np
 
 from ..models import build_model, get_config
 from ..serving import Request, ServingEngine
-
-
-def tiny(cfg):
-    """The reference's tiny model of ``cfg`` (``repro/launch/train.py``)."""
-    return cfg.replace(
-        n_layers=len(cfg.pattern) * 2 if not cfg.shared_attn_period
-        else cfg.shared_attn_period,
-        d_model=128, n_heads=4,
-        n_kv_heads=min(4, cfg.n_kv_heads), head_dim=32,
-        d_ff=0 if cfg.d_ff == 0 else 256, vocab=512,
-        moe_experts=8 if cfg.moe_experts else 0,
-        moe_top_k=min(2, cfg.moe_top_k) if cfg.moe_top_k else 0,
-        moe_shared_dff=64 if cfg.moe_shared_dff else 0,
-        moe_group_size=64, ssm_chunk=32, ssm_head_dim=16,
-        encoder_layers=2 if cfg.is_encdec else 0,
-        encoder_len=32 if cfg.is_encdec else cfg.encoder_len,
-        n_img_tokens=4 if cfg.n_img_tokens else 0,
-        window=16 if cfg.window else None,
-        query_pre_attn_scalar=32.0 if cfg.query_pre_attn_scalar else None,
-        remat=False, q_chunk=64, loss_seq_chunk=None)
+from .train import tiny
 
 
 def main(argv=None):

@@ -1,11 +1,10 @@
-"""Step functions (prefill / decode) and the models' parameter and FLOP
-counts: the port of ``repro/launch/steps.py``.
+"""Step functions (train / prefill / decode) and the models' parameter and
+FLOP counts: the port of ``repro/launch/steps.py``.
 
 The reference's factories also take the sharding rules and the mesh, and
 the module builds input specs and shardings for the production mesh; those
 wait for the port of ``runtime/sharding.py`` (ROADMAP.md, slice E), so the
-factories here take the model alone.  The train step waits for the port of
-the optimizer and ``loss``.
+factories here take the model alone.
 """
 
 from __future__ import annotations
@@ -18,6 +17,36 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..models import build_model
 from ..models import layers as L
 from ..models.moe import pad_experts
+from ..optim import AdamWConfig, apply_updates
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``loss_fn(params, batch)`` -> (loss, metrics), and its gradient with
+    respect to every parameter leaf, as the reference's
+    ``jax.value_and_grad(..., has_aux=True)``: (loss, metrics, grads), all
+    detached.  The leaves are differentiated through detached views, so
+    ``params`` itself never requires grad."""
+    leaves = L.tree_leaves(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = loss_fn(L.tree_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            L.tree_unflatten(params, grads))
+
+
+def make_train_step(model, adamw_cfg: AdamWConfig):
+    """One training step: the loss and its gradient, then AdamW, which
+    updates ``params`` and ``opt_state`` in place.  Returns (params,
+    opt_state, {"loss", "nll", "aux", "grad_norm", "lr"})."""
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(model.loss, params, batch)
+        params, opt_state, om = apply_updates(adamw_cfg, params, grads,
+                                              opt_state)
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step
 
 
 def make_prefill_step(model):

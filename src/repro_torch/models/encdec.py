@@ -22,7 +22,9 @@ versions on the CPU), as ``layers.attention`` routes them:
 As in the reference, ``encode`` casts the frames and the sinusoidal table
 to bf16 whatever the parameters' dtype, the cross K/V cache is stored in
 bf16, and decode offsets the positions per row.  Caches are preallocated
-stacked ``(G, B, ...)`` tensors the steps write in place.
+stacked ``(G, B, ...)`` tensors the steps write in place.  With
+``cfg.remat`` each encoder and decoder layer runs under
+``torch.utils.checkpoint`` when autograd records the pass.
 """
 
 from __future__ import annotations
@@ -134,8 +136,11 @@ class EncDecLM:
         x = frames.to(torch.bfloat16) + sinusoidal(
             frames.shape[1], self.cfg.d_model,
             device=frames.device).to(torch.bfloat16)[None]
+        layer = self.encoder_layer
+        if self.cfg.remat and L.grad_needed(params["encoder"]):
+            layer = L.remat(layer)
         for gi in range(self.cfg.encoder_layers):
-            x = self.encoder_layer(_index(params["encoder"], gi), x)
+            x = layer(_index(params["encoder"], gi), x)
         return self._normf()(params["enc_final_norm"], x)
 
     # -- decoder ----------------------------------------------------------------
@@ -191,8 +196,11 @@ class EncDecLM:
 
     def _decoder_stack(self, params, x, memory, caches, *, positions,
                        cache_len, mode):
+        layer = self.decoder_layer
+        if self.cfg.remat and L.grad_needed(params["decoder"], x, memory):
+            layer = L.remat(layer)
         for gi in range(self.cfg.n_layers):
-            x = self.decoder_layer(
+            x = layer(
                 _index(params["decoder"], gi), x, memory,
                 None if caches is None else _index(caches, gi),
                 positions=positions, cache_len=cache_len, mode=mode)
@@ -216,6 +224,14 @@ class EncDecLM:
                                    positions=positions, cache_len=None,
                                    mode="train")
         return self._normf()(params["final_norm"], x), 0.0
+
+    def loss(self, params, batch):
+        """batch: {"tokens", "labels": (B, S), "frames": (B, T, D)} ->
+        (nll, {"nll", "aux": 0})."""
+        hidden, _ = self.forward(params, batch["tokens"], batch["frames"])
+        nll = L.cross_entropy_loss(params["embed"], hidden, batch["labels"],
+                                   seq_chunk=self.cfg.loss_seq_chunk)
+        return nll, {"nll": nll, "aux": nll.new_zeros(())}
 
     def cache_spec(self, batch: int, max_len: int) -> dict:
         """Stacked (G, ...) specs: self K/V (B, max_len, Hk, hd) and cross

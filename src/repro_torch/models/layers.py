@@ -31,11 +31,13 @@ the card's shared memory cannot hold the tiles.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import TensorSpec
 from ..kernels.decode_attention import decode_attention
@@ -77,6 +79,41 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, tuple):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """The tree of ``like`` (dicts and tuples) with its leaves replaced by
+    ``leaves``, given in :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(tree):
+        if isinstance(tree, dict):
+            out = {k: build(tree[k]) for k in sorted(tree)}
+            return {k: out[k] for k in tree}
+        if isinstance(tree, tuple):
+            return tuple(build(v) for v in tree)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def remat(fn: Callable) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward, as the reference's ``jax.checkpoint``.  The
+    layers draw no random numbers, so no RNG state is kept."""
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def grad_needed(*trees) -> bool:
+    """Whether grad mode is on and a tensor of ``trees`` requires grad:
+    a pass autograd records (a training step), as opposed to serving, a
+    graph block's timing or its capture."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tree_leaves(trees))
 
 
 def abstract_tree(spec, dtype=torch.bfloat16):
@@ -409,3 +446,46 @@ def embed(p, tokens, scale_by_dim: bool = False):
 def unembed(p, x, softcap: float | None = None):
     logits = (x @ p["table"].T).float()
     return _softcap(logits, softcap)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over sequence so (B,S,V) logits never fully materialise)
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(table, xc, yc, softcap):
+    """(sum of the nll over the valid positions, their count) of one
+    chunk; label -1 is ignored (a VLM's image prefix)."""
+    logits = unembed({"table": table}, xc, softcap=softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit as <x, table[label]>, rounded as the logits are
+    gold = _softcap(torch.einsum("bsd,bsd->bs", xc,
+                                 F.embedding(yc.clamp(min=0).long(), table))
+                    .float(), softcap)
+    valid = yc >= 0
+    return (torch.where(valid, logz - gold, 0.0).sum(),
+            valid.sum().float())
+
+
+def cross_entropy_loss(embed_params, x, labels, *, softcap=None,
+                       seq_chunk: int | None = None):
+    """x: (B, S, D) final hidden; labels: (B, S) int32; returns the mean
+    nll over the labels that are not -1.
+
+    ``seq_chunk`` bounds the logits held at once to (B, chunk, V), chunk
+    the largest divisor of S not above it: each chunk runs under
+    ``torch.utils.checkpoint``, so its backward recomputes its logits (the
+    reference's ``jax.checkpoint`` scan body)."""
+    S = x.shape[1]
+    table = embed_params["table"]
+    if seq_chunk is not None and S % seq_chunk != 0:
+        seq_chunk = next(c for c in range(min(seq_chunk, S), 0, -1)
+                         if S % c == 0)
+    if seq_chunk is None or S <= seq_chunk:
+        total, count = _chunk_loss(table, x, labels, softcap)
+    else:
+        total = count = 0.0
+        for xc, yc in zip(x.split(seq_chunk, dim=1),
+                          labels.split(seq_chunk, dim=1)):
+            t, c = remat(_chunk_loss)(table, xc, yc, softcap)
+            total, count = total + t, count + c
+    return total / torch.clamp(count, min=1.0)

@@ -14,12 +14,17 @@ Execution modes:
 * ``decode_step``  — one token per row against the caches.
 
 ``aux`` is the MoE layers' Switch load-balancing loss summed over the
-stack (0.0 without MoE layers).  The sLSTM's state starts differently by
-entry point, as in the reference: ``forward`` passes none (its stabiliser
-starts at -1e9), ``prefill`` the zeroed cache (0).
+stack (0.0 without MoE layers); ``loss`` adds 0.01 of it to the nll.  With
+``cfg.remat`` a pass that autograd records runs each group under
+``torch.utils.checkpoint``, as the reference's training pass runs it under
+``jax.checkpoint``.  The
+sLSTM's state starts differently by entry point, as in the reference:
+``forward`` passes none (its stabiliser starts at -1e9), ``prefill`` the
+zeroed cache (0).
 """
 
 from __future__ import annotations
+
 
 import torch
 
@@ -249,12 +254,15 @@ class DecoderLM:
 
     def _stack(self, params, x, caches, *, positions, cache_len, mode):
         shared = params.get("shared_block")
+        group = self._apply_group
+        if self.cfg.remat and L.grad_needed(params, x):
+            group = L.remat(group)     # recomputed in the backward
         aux = 0.0
         for gi in range(self.cfg.n_groups):
             cg = None if caches is None else _index(caches, gi)
-            x, _, a = self._apply_group(_index(params["layers"], gi), shared,
-                                        x, cg, positions=positions,
-                                        cache_len=cache_len, mode=mode)
+            x, _, a = group(_index(params["layers"], gi), shared, x, cg,
+                            positions=positions, cache_len=cache_len,
+                            mode=mode)
             aux = aux + a
         return x, caches, aux
 
@@ -275,6 +283,23 @@ class DecoderLM:
         x, _, aux = self._stack(params, x, None, positions=positions,
                                 cache_len=None, mode="train")
         return _norm(self.cfg)(params["final_norm"], x), aux
+
+    def loss(self, params, batch):
+        """batch: {"tokens": (B, S), "labels": (B, S) [, "patch_embeds"]}
+        -> (nll + 0.01 aux, {"nll", "aux"}); image positions take label
+        -1, which the loss ignores."""
+        hidden, aux = self.forward(params, batch["tokens"],
+                                   batch.get("patch_embeds"))
+        labels = batch["labels"]
+        if "patch_embeds" in batch and self.cfg.n_img_tokens:
+            pad = labels.new_full((labels.shape[0], self.cfg.n_img_tokens),
+                                  -1)
+            labels = torch.cat([pad, labels], dim=1)
+        nll = L.cross_entropy_loss(params["embed"], hidden, labels,
+                                   softcap=self.cfg.final_softcap,
+                                   seq_chunk=self.cfg.loss_seq_chunk)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, tokens, cache, patch_embeds=None):
         """Fill caches with the prompt from position 0, recurrent states

@@ -1016,3 +1016,131 @@ def test_fx_lint_captures_kernel_blocks_on_the_card(cuda):
     assert lint_blocks(fuse_blocks(g)) == []        # meta alone: clean
     assert torch.equal(torch.ones(2, device=cuda) + 1,
                        torch.full((2,), 2.0, device=cuda))
+
+
+# -- training on the card: the kernels' autograd Functions ------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [dict(causal=True),
+                                  dict(causal=True, window=40, softcap=20.0),
+                                  dict(causal=False)], ids=str)
+def test_flash_gradients_through_the_kernel(cuda, dtype, mask):
+    """With grad mode on and inputs that require grad, the wrapper launches
+    the kernel forward and its backward is the plain version's gradient:
+    every one of q, k, v gets it (none is cut)."""
+    rng = np.random.default_rng(40)
+    q, k, v = (_randn(rng, s, dtype, cuda).requires_grad_()
+               for s in ((2, 160, 4, 64), (2, 160, 2, 64), (2, 160, 2, 64)))
+    before = (fa_mod.launches, fa_mod.backward_launches)
+    o = fa_mod.flash_attention(q, k, v, **mask)
+    assert o.grad_fn is not None
+    go = _randn(rng, o.shape, dtype, cuda)
+    got = torch.autograd.grad(o, (q, k, v), go)
+    assert (fa_mod.launches, fa_mod.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    _close(o, flash_attention_ref(q, k, v, **mask), TOL[dtype])
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, **mask),
+                               (q, k, v), go)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.abs().sum() > 0
+        _close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,S,H,P,N,chunk", [
+    (torch.float32, 96, 4, 32, 16, 32),
+    (torch.bfloat16, 256, 4, 64, 64, 64),
+    (torch.bfloat16, 256, 2, 384, 384, 128),       # the wide route
+])
+def test_ssd_gradients_through_the_kernel(cuda, dtype, S, H, P, N, chunk):
+    """As models/ssm.py calls it: log_a in fp32, head-shared b, c as
+    stride-0 views, whose gradients sum over the heads; a loss on y and
+    on the final state."""
+    rng = np.random.default_rng(41)
+    x = _randn(rng, (2, S, H, P), dtype, cuda).requires_grad_()
+    b1, c1 = ((_randn(rng, (2, S, 1, N), dtype, cuda) * N ** -0.5)
+              .requires_grad_() for _ in range(2))
+    la = torch.from_numpy(-rng.random((2, S, H), dtype=np.float32)).to(
+        cuda).requires_grad_()
+    inputs = (x, la, b1, c1)
+
+    def loss(fn):
+        y, final = fn(x, la, b1.expand(2, S, H, N), c1.expand(2, S, H, N),
+                      chunk=chunk)
+        return y.float().square().mean() + final.square().mean(), y
+
+    before = (ssd_mod.launches, ssd_mod.backward_launches)
+    out, y = loss(ssd_mod.ssd_scan)
+    got = torch.autograd.grad(out, inputs)
+    assert (ssd_mod.launches, ssd_mod.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref_out, y_ref = loss(ssd_ref)
+    _close(y, y_ref, SSD_TOL[dtype])
+    want = torch.autograd.grad(ref_out, inputs)
+    for g, w in zip(got, want):
+        assert g.abs().sum() > 0
+        _close(g, w, SSD_TOL[dtype])
+
+
+def test_decode_attention_refuses_input_that_requires_grad(cuda):
+    rng = np.random.default_rng(42)
+    q = _randn(rng, (2, 4, 64), torch.float32, cuda).requires_grad_()
+    k = v = _randn(rng, (2, 32, 2, 64), torch.float32, cuda)
+    lengths = torch.tensor([5, 32], dtype=torch.int32, device=cuda)
+    before = da_mod.launches
+    with pytest.raises(ValueError, match="no backward"):
+        da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.launches == before
+    with torch.no_grad():
+        da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32: one train step on the card (fp32 kernels forward, the plain
+    backward, TF32 off) against the CPU: the loss within 1e-3 relative (the
+    forward's tolerance above), the whole update within 1e-2 relative L2;
+    each kernel of the path launches in both directions."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, init_state
+    cpu, card = _small_lm(arch, "cpu"), _small_lm(arch, cuda)
+    params = cpu.init(seed=2, dtype=torch.float32)
+    start = [p.clone() for p in L.tree_leaves(params)]
+    dparams = L.tree_map(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(14)
+    batch = {k: torch.from_numpy(rng.integers(0, 128, (2, 32),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+    cfg = AdamWConfig(lr=1e-2)
+    counts = (fa_mod.backward_launches, ssd_mod.backward_launches)
+    _, _, want = make_train_step(cpu, cfg)(params, init_state(params), batch)
+    _, _, got = make_train_step(card, cfg)(
+        dparams, init_state(dparams), {k: v.to(cuda) for k, v in
+                                       batch.items()})
+    assert abs(got["loss"].item() - want["loss"].item()) <= \
+        1e-3 * abs(want["loss"].item())
+    moved = [(d.cpu() - s, p - s) for d, p, s in zip(
+        L.tree_leaves(dparams), L.tree_leaves(params), start)]
+    err = sum((a - b).square().sum() for a, b in moved).sqrt()
+    assert err <= 1e-2 * sum(b.square().sum() for _, b in moved).sqrt()
+    assert ssd_mod.backward_launches > counts[1]
+    if arch == "zamba2-2.7b":
+        assert fa_mod.backward_launches > counts[0]
+
+
+def test_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(43)
+    tree = {"p": {"w": _randn(rng, (64, 32), torch.bfloat16, cuda),
+                  "b": _randn(rng, (32,), torch.float32, cuda)},
+            "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(7, tree)
+    mgr.wait()
+    like = L.tree_map(lambda t: t.cpu(), tree)
+    got, step, _ = mgr.restore_latest(like)
+    assert step == 7
+    for g, w in zip(L.tree_leaves(got), L.tree_leaves(tree)):
+        assert g.device.type == "cpu" and g.dtype == w.dtype
+        assert torch.equal(g, w.cpu())

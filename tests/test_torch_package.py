@@ -23,6 +23,7 @@ from repro_torch.kernels import (KernelAutotuner, _build,
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.launch import serve, train
 from repro_torch.models import DecoderLM, build_model, cnn_zoo, get_config
 from repro_torch.runtime import DagPipelineExecutor, PipelineExecutor
 
@@ -45,8 +46,28 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes",
+                                   "msgpack"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_zstandard_only_guarded(path):
+    """The card's host has no ``zstandard``: an import of it sits in a
+    ``try`` that handles its absence."""
+    tree = ast.parse(path.read_text())
+    guarded = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try)
+               and any(h.type is not None and "ImportError" in ast.dump(h.type)
+                       for h in t.handlers)
+               for stmt in t.body for n in ast.walk(stmt)}
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(
+                node, ast.Import) else [node.module or ""]
+            if any(n.split(".")[0] == "zstandard" for n in names):
+                assert id(node) in guarded, \
+                    f"{path.relative_to(ROOT)}:{node.lineno}"
 
 
 def test_port_import_leaves_jax_unloaded():
@@ -63,7 +84,9 @@ def test_port_import_leaves_jax_unloaded():
             " repro_torch.models.layers, repro_torch.models.ssm,"
             " repro_torch.models.lm, repro_torch.models.registry,"
             " repro_torch.models.graph_adapter, repro_torch.launch.steps,"
-            " repro_torch.launch.serve, repro_torch.serving.engine;"
+            " repro_torch.launch.serve, repro_torch.serving.engine,"
+            " repro_torch.optim, repro_torch.data, repro_torch.checkpoint,"
+            " repro_torch.launch.train;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -71,6 +94,24 @@ def test_port_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_checkpoint_imports_without_msgpack():
+    """The card's host has no ``msgpack``: the port's checkpoint carries
+    its own encoder and decoder."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] == 'msgpack':\n"
+            "            raise ImportError('msgpack blocked')\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import repro_torch.checkpoint.ckpt as c\n"
+            "assert c.unpackb(c.packb({'a': [1, b'x']})) == {'a': [1, b'x']}\n"
+            "assert 'msgpack' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.fixture
@@ -104,11 +145,20 @@ _ENTRY_POINTS = {
     "to_torch": lambda **kw: convert.to_torch({"w": np.zeros(2)}, **kw),
     "zoo_params_to_torch": lambda **kw: convert.zoo_params_to_torch(
         {"fc": {"w": np.zeros((2, 3)), "b": np.zeros(3)}}, **kw),
+    "adamw_state_to_torch": lambda **kw: convert.adamw_state_to_torch(
+        {"mu": {"w": np.zeros(2)}, "nu": {"w": np.zeros(2)}, "step": 0},
+        **kw),
     "cnn_zoo.build": lambda **kw: cnn_zoo.build("MobileNet", **kw),
     "DagPipelineExecutor": lambda **kw: DagPipelineExecutor(
         _graph(), _config(), **kw),
     "build_model": lambda **kw: build_model(get_config("granite-8b"), **kw),
     "DecoderLM": lambda **kw: DecoderLM(get_config("zamba2-2.7b"), **kw),
+    "launch.train.main": lambda **kw: train.main(
+        ["--tiny", "--steps", "1", "--batch", "2", "--seq", "8"] +
+        [f"--{k}={v}" for k, v in kw.items()]),
+    "launch.serve.main": lambda **kw: serve.main(
+        ["--requests", "1", "--max-new", "1"] +
+        [f"--{k}={v}" for k, v in kw.items()]),
 }
 
 
