@@ -7,12 +7,12 @@ Runs Table I (``bench_zoo_torch``), Table III (``bench_overhead_torch``),
 Figs 6-15 and Table IV (``bench_partitions_torch``), the <50 ms query
 claim (``bench_query_torch``), elastic re-planning
 (``bench_elastic_torch``), the serving plane's goodput gate
-(``bench_serving_torch``) and kernel autotuning with its shared-memory and
-tiling pruning gates (``bench_autotune_torch``), prints a human-readable
-report per table and a machine-readable ``name,us_per_call,derived`` CSV at
-the end, and exits 1 when any gate failed.  Not yet ported: the
-reference's roofline benchmark (``bench_roofline``), which needs the
-launch package.
+(``bench_serving_torch``), kernel autotuning with its shared-memory and
+tiling pruning gates (``bench_autotune_torch``) and the roofline over the
+dry-run's record (``bench_roofline_torch``, which says how to make the
+record where it is missing), prints a human-readable report per table and
+a machine-readable ``name,us_per_call,derived`` CSV at the end, and exits 1
+when any gate failed.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ def main() -> None:
 
     from . import (bench_autotune_torch, bench_elastic_torch,
                    bench_overhead_torch, bench_partitions_torch,
-                   bench_query_torch, bench_serving_torch, bench_zoo_torch)
+                   bench_query_torch, bench_roofline_torch,
+                   bench_serving_torch, bench_zoo_torch)
 
     rows = []
     rows += bench_zoo_torch.run(quick, device=device)        # Table I
@@ -41,6 +42,7 @@ def main() -> None:
     rows += bench_query_torch.run(quick, device=device)      # <50ms query
     rows += bench_elastic_torch.run(quick, device=device)    # re-planning
     rows += bench_autotune_torch.run(quick, device=device)   # autotune gates
+    rows += bench_roofline_torch.run(quick)                  # §Roofline
     serving = bench_serving_torch.smoke(device=device)       # goodput gate
     rows.append(("serving/poisson_rel_err", 0.0,
                  serving["poisson"]["rel_err"]))

@@ -147,6 +147,25 @@ the plain version (``TOL``), each Function's gradients against plain
 autograd's (``FN_GRAD_TOL``), and one plain backward is timed; the kernel
 rows carry the phase's launches as ``launches_train``.
 
+The ``mesh`` phase follows ``train``: the launch slice.  First the dry-run
+on the card's host (``launch/dryrun.py``: ``meta`` DTensors over a fake
+512-rank process group, no device touched) of zamba2-2.7b × train_4k on
+the 16 x 16 mesh and granite-8b × decode_32k on 2 x 16 x 16 (``MESH_CELLS``),
+each record printed with its roofline terms and the port's roofline table,
+written to ``dryrun_torch.json`` under ``--out``; both must be OK, with
+FLOPs, bytes, arguments and temporaries above 0 and the train cell's
+collectives too.  Then, on a 1 x 1 ``DeviceMesh`` of the card over a
+one-rank NCCL group, zamba2-2.7b trains ``MESH_ZAMBA`` steps at 2 × 2048
+through the sharded train step (its parameters and moments DTensors
+wrapping the tensors, no copy) after as many unsharded steps from the same
+seed, and granite-8b prefills ``MESH_GRANITE``'s 8 × 1024 tokens and takes
+16 greedy decode steps (under ``rules_for(decode_32k)``) sharded and
+unsharded on the same weights.  Losses, parameters and logits must be equal
+bit for bit and the tokens equal, and flash_attention, ssd_scan and
+decode_attention must launch inside the mesh (counted from 0); each step's
+time is printed beside the unsharded one's (DTensor's host cost).  The
+kernel rows carry those launches as ``launches_mesh``.
+
 The ``analysis`` phase runs ``python -m repro_torch.analysis --strict`` over
 every target with the card's shared-memory limit (the kernels' candidate
 footprints and tile alignment at the paths' full-width shapes, the graph
@@ -2172,12 +2191,13 @@ def zero_launches() -> None:
 
 
 def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
-                on_step=None) -> tuple:
+                on_step=None, prepare=None) -> tuple:
     """Steps ``[start, stop)`` of ``step_fn`` on the pipeline's batches;
     each step, the loss and AdamW timed apart with CUDA events (the
     backward is the rest of the step).  ``sup`` checkpoints as the trainer
     does (the state after step + 1 steps, labelled so); ``on_step(step,
-    state)`` runs after each.  Returns (params, opt, numbers)."""
+    state)`` runs after each; ``prepare(batch)`` lays a batch out for the
+    step (a mesh's DTensors).  Returns (params, opt, numbers)."""
     import time
 
     import torch
@@ -2195,6 +2215,8 @@ def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
         for step in range(start, stop):
             batch = device_batch(model.cfg, data.global_batch_at(step),
                                  model.device)
+            if prepare is not None:
+                batch = prepare(batch)
             t0 = time.perf_counter()
             params, opt, metrics = timed(params, opt, batch)
             losses.append(metrics["loss"])
@@ -2642,6 +2664,271 @@ def train_phase(dev, card, peak_flops, out_dir) -> dict:
                "ones not counted)"),
         "decode_attention": dict(forward=0, backward_plain=0,
                                  of="training never decodes"),
+    }
+
+
+# the dry-run's cells: (arch, shape, multi_pod)
+MESH_CELLS = [("zamba2-2.7b", "train_4k", False),
+              ("granite-8b", "decode_32k", True)]
+MESH_ZAMBA = dict(steps=2, batch=2, seq=2048)
+MESH_GRANITE = dict(batch=8, prompt=1024, new=16)
+# The sharded steps on the card's 1 x 1 mesh against the unsharded ones:
+# equal bit for bit.  Decided before the first run on the card: every
+# placement on a mesh of one rank is local, DTensor issues no collective
+# for a mesh dimension of size 1, and each operator runs on the whole
+# tensor as the unsharded step runs it (the kernels through local_map on
+# the same tensors); CPU runs of reduced configs gave equal numbers.
+
+
+def mesh_dryrun(card, out_dir) -> list:
+    """The dry-run's cells on the host (``meta`` DTensors over the fake
+    512-rank group): records, the roofline tables, ``dryrun_torch.json``."""
+    from repro_torch.configs.base import shape_by_name
+    from repro_torch.launch import dryrun, roofline
+
+    records = []
+    for arch, shape, multi_pod in MESH_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape_by_name(shape), multi_pod=multi_pod)
+        rec["wall_s"] = time.perf_counter() - t0
+        records.append(rec)
+        if rec["status"] != "OK":
+            raise RuntimeError(f"dry-run {arch} x {shape}: {rec['status']} "
+                               f"{rec.get('error')}\n{rec.get('trace')}")
+        a = roofline.analyse(rec)
+        mem = rec["memory"]
+        print(f"mesh dry-run {arch} x {shape} x {rec['mesh']} "
+              f"({rec['n_devices']} ranks, traced on the host in "
+              f"{rec['wall_s']:.1f} s): per device "
+              f"{rec['hlo_flops_per_device']:.4e} FLOP, "
+              f"{rec['hlo_bytes_per_device']:.4e} B, collectives "
+              + ", ".join(f"{k} {v:.4e} B" for k, v in
+                          rec["collectives"].items())
+              + f"; arguments {mem['argument_bytes'] / 2**30:.3f} GiB, "
+              f"temporaries {mem['temp_bytes'] / 2**30:.3f} GiB; useful-FLOPs "
+              f"ratio {a['useful_flops_ratio']:.4f}; roofline terms (H100 "
+              f"data sheet) compute {a['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{a['t_memory_s'] * 1e3:.3f} ms, collective "
+              f"{a['t_collective_s'] * 1e3:.3f} ms, dominant {a['dominant']}")
+        if not (rec["hlo_flops_per_device"] > 0 and
+                rec["hlo_bytes_per_device"] > 0 and
+                mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0):
+            raise RuntimeError(f"dry-run {arch} x {shape}: an empty count")
+        if shape.startswith("train") and not \
+                rec["collective_bytes_per_device"] > 0:
+            raise RuntimeError(f"dry-run {arch} x {shape}: no collective")
+    for mesh in ("16x16", "2x16x16"):
+        print(f"roofline over the dry-run, mesh {mesh} (data-sheet "
+              f"figures of {card.split(',')[0]}):")
+        print(roofline.table(records, mesh))
+    if out_dir:
+        path = os.path.join(out_dir, "dryrun_torch.json")
+        with open(path, "w") as f:
+            json.dump(records, f, indent=1)
+        print(f"wrote {path}")
+    return records
+
+
+def _host(tree) -> list:
+    """Every leaf's local tensor, copied to the host."""
+    from repro_torch.models import layers as L
+    return [(t.to_local() if hasattr(t, "to_local") else t).cpu()
+            for t in L.tree_leaves(tree)]
+
+
+def mesh_zamba(dev, card, mesh) -> dict:
+    """zamba2-2.7b at full size: ``MESH_ZAMBA["steps"]`` unsharded train
+    steps, then as many through the mesh from the same seed (parameters
+    and moments DTensors wrapping the same kind of tensors, no copy); the
+    losses and the parameters after the last step must be equal bit for
+    bit, and flash_attention and ssd_scan must launch inside the mesh."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step, rules_for, \
+        shard_args
+    from repro_torch.optim import AdamWConfig, init_state
+
+    t = MESH_ZAMBA
+    label = "zamba2-2.7b"
+    shape = ShapeConfig("mesh_train", t["seq"], t["batch"], "train")
+    rules = rules_for(shape, multi_pod=False)
+    runs = {}
+    for sharded in (False, True):
+        model, params = lm_model(label, dev)
+        data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=t["seq"],
+                                      global_batch=t["batch"], seed=SEED))
+        opt = init_state(params)
+        kw, prepare = {}, None
+        if sharded:
+            args = shard_args(model.cfg, shape, mesh, rules,
+                              {"params": params, "opt_state": opt})
+            params, opt = args["params"], args["opt_state"]
+            kw = dict(rules=rules, mesh=mesh)
+
+            def prepare(batch):
+                return shard_args(model.cfg, shape, mesh, rules,
+                                  {"batch": batch})["batch"]
+        zero_launches()
+        params, opt, run = train_steps(
+            model, make_train_step(model, AdamWConfig(), **kw), params, opt,
+            data, 0, t["steps"], prepare=prepare)
+        run["launches"] = kernel_launches()
+        run["params"] = _host(params)
+        runs[sharded] = run
+        del model, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, mesh_run = runs[False], runs[True]
+    for name, run in (("unsharded", plain), ("1 x 1 mesh", mesh_run)):
+        print(f"[{card}] mesh {label} train, {name}: step "
+              f"{run['step_ms']:.1f} ms (forward + loss {run['fwd_ms']:.1f}, "
+              f"backward {run['bwd_ms']:.1f}, AdamW {run['opt_ms']:.1f}; "
+              f"CUDA-event medians over {t['steps']} steps of {t['batch']} x "
+              f"{t['seq']} tokens); peak memory {run['peak_gb']:.2f} GB; "
+              f"losses " + ", ".join(f"{v:.6f}" for v in run["losses"])
+              + f"; launches {run['launches']}")
+    same = sum(torch.equal(a, b) for a, b in zip(plain["params"],
+                                                  mesh_run["params"]))
+    print(f"[{card}] mesh {label} train: losses equal "
+          f"{plain['losses'] == mesh_run['losses']}; {same} of "
+          f"{len(plain['params'])} parameter leaves equal bit for bit after "
+          f"step {t['steps']}; DTensor's host cost "
+          f"{mesh_run['step_ms'] - plain['step_ms']:.1f} ms a step")
+    if plain["losses"] != mesh_run["losses"] or same != len(plain["params"]):
+        raise RuntimeError(f"mesh {label}: the sharded steps differ from the "
+                           "unsharded ones")
+    launches = mesh_run["launches"]
+    for k in ("flash_attention", "ssd_scan",
+              "flash_attention backward (plain)",
+              "ssd_scan backward (plain)"):
+        if launches[k] <= 0:
+            raise RuntimeError(f"mesh {label}: no {k} launch in the mesh")
+    return dict(launches=launches, step_ms=mesh_run["step_ms"],
+                plain_step_ms=plain["step_ms"])
+
+
+def mesh_granite(dev, card, mesh) -> dict:
+    """granite-8b at full size: the prefill over ``MESH_GRANITE["batch"]``
+    prompts of ``MESH_GRANITE["prompt"]`` tokens and ``["new"]`` greedy
+    decode steps, unsharded and then through the mesh (the decode steps
+    under ``rules_for(decode_32k)``) on the same weights; logits bit for
+    bit and tokens equal, and flash_attention and decode_attention must
+    launch inside the mesh."""
+    import torch
+    from repro_torch.configs.base import DECODE_32K, ShapeConfig
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, rules_for,
+                                          shard_args)
+
+    g = MESH_GRANITE
+    label = "granite-8b"
+    model, params = lm_model(label, dev)
+    max_len = g["prompt"] + g["new"]
+    pshape = ShapeConfig("mesh_prefill", max_len, g["batch"], "prefill")
+    dshape = ShapeConfig("mesh_decode", max_len, g["batch"], "decode")
+    prules = rules_for(pshape, multi_pod=False)
+    drules = rules_for(DECODE_32K, multi_pod=False)
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, model.cfg.vocab, (g["batch"], g["prompt"]),
+                           generator=gen, dtype=torch.int32).to(dev)
+    runs = {}
+    for sharded in (False, True):
+        cache = model.init_cache(g["batch"], max_len)
+        p, batch = params, {"tokens": tokens}
+        prefill, decode = make_prefill_step(model), make_decode_step(model)
+        if sharded:
+            a = shard_args(model.cfg, pshape, mesh, prules,
+                           {"params": params, "cache": cache,
+                            "batch": batch})
+            p, cache, batch = a["params"], a["cache"], a["batch"]
+            prefill = make_prefill_step(model, rules=prules, mesh=mesh)
+            decode = make_decode_step(model, rules=drules, mesh=mesh)
+        pre_clock, dec_clock = StepClock(), StepClock()
+        prefill, decode = pre_clock.wrap(prefill), dec_clock.wrap(decode)
+        zero_launches()
+        outs, toks = [], []
+        with torch.no_grad():
+            logits, cache = prefill(p, cache, batch)
+            outs.append(logits)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            tok = tok[:, None]
+            for i in range(g["new"]):
+                d = {"token": tok.full_tensor() if sharded else tok,
+                     "cache_len": torch.tensor(g["prompt"] + i,
+                                               dtype=torch.int32, device=dev)}
+                if sharded:
+                    d = shard_args(model.cfg, dshape, mesh, drules, d)
+                tok, logits, cache = decode(p, cache, d["token"],
+                                            d["cache_len"])
+                outs.append(logits)
+                toks.append(tok.full_tensor() if sharded else tok)
+        runs[sharded] = dict(
+            logits=[o.full_tensor() if sharded else o for o in outs],
+            tokens=torch.cat(toks, dim=1), launches=kernel_launches(),
+            prefill_ms=pre_clock.ms()[0],
+            decode_ms=statistics.median(dec_clock.ms()))
+        del cache, outs
+    plain, mesh_run = runs[False], runs[True]
+    for name, run in (("unsharded", plain), ("1 x 1 mesh", mesh_run)):
+        print(f"[{card}] mesh {label} serve, {name}: prefill of "
+              f"{g['batch']} x {g['prompt']} tokens {run['prefill_ms']:.1f} "
+              f"ms, decode step {run['decode_ms']:.2f} ms (CUDA-event median "
+              f"of {g['new']}); launches {run['launches']}")
+    same = sum(torch.equal(a, b) for a, b in zip(plain["logits"],
+                                                  mesh_run["logits"]))
+    worst = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(plain["logits"], mesh_run["logits"]))
+    toks_same = torch.equal(plain["tokens"], mesh_run["tokens"])
+    print(f"[{card}] mesh {label} serve: {same} of {len(plain['logits'])} "
+          f"logits tensors equal bit for bit (largest difference "
+          f"{worst:.4g}); greedy tokens equal {toks_same}")
+    if same != len(plain["logits"]) or not toks_same:
+        raise RuntimeError(f"mesh {label}: the sharded steps differ from the "
+                           "unsharded ones")
+    launches = mesh_run["launches"]
+    for k in ("flash_attention", "decode_attention"):
+        if launches[k] <= 0:
+            raise RuntimeError(f"mesh {label}: no {k} launch in the mesh")
+    del model, params
+    return dict(launches=launches, prefill_ms=mesh_run["prefill_ms"],
+                decode_ms=mesh_run["decode_ms"])
+
+
+def mesh_phase(dev, card, out_dir) -> dict:
+    """The launch slice: the dry-run's cells on the host, then zamba2-2.7b
+    trained and granite-8b served through the sharded steps on a 1 x 1
+    ``DeviceMesh`` of the card (NCCL), each against its unsharded steps.
+    Returns each kernel's launches in the mesh, by path."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t0 = time.perf_counter()
+    mesh_dryrun(card, out_dir)
+    dist.destroy_process_group()        # the fake group of the dry-run
+    print(f"mesh dry-run: {time.perf_counter() - t0:.1f} s of wall time")
+    mesh = make_smoke_mesh(dev)
+    try:
+        t1 = time.perf_counter()
+        zb = mesh_zamba(dev, card, mesh)
+        print(f"mesh zamba2-2.7b: {time.perf_counter() - t1:.1f} s of wall "
+              "time")
+        t1 = time.perf_counter()
+        gr = mesh_granite(dev, card, mesh)
+        print(f"mesh granite-8b: {time.perf_counter() - t1:.1f} s of wall "
+              "time")
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s of wall time")
+    z, g = zb["launches"], gr["launches"]
+    return {
+        "flash_attention": {"zamba2-2.7b train": z["flash_attention"],
+                            "granite-8b serve": g["flash_attention"]},
+        "ssd_scan": {"zamba2-2.7b train": z["ssd_scan"]},
+        "decode_attention": {"granite-8b serve": g["decode_attention"]},
     }
 
 
@@ -3131,6 +3418,10 @@ def main() -> int:
     for r in kernels:
         if r["name"] in train:
             r["train"] = train[r["name"]]
+    mesh = mesh_phase(dev, smi[0], args.out)
+    for r in kernels:
+        if r["name"] in mesh:
+            r["mesh"] = mesh[r["name"]]
 
     # the zoo path runs none of the hand-written kernels
     from repro_torch.kernels import decode_attention as da_mod
@@ -3191,6 +3482,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             **({"launches_of": of} if of else {}),
             **({"launches_train": r["train"]} if "train" in r else {}),
+            **({"launches_mesh": r["mesh"]} if "mesh" in r else {}),
             **({"launches_split": r["launches_split"]}
                if "launches_split" in r else {}),
             **r.get("build", {})})

@@ -59,6 +59,14 @@ def capture(fn, args: tuple, device: torch.device):
         else torch.cuda.current_device()
     stream = _capture_stream(index)
     graph = torch.cuda.CUDAGraph()
+    # capture_begin puts the default generator's state in capture mode and
+    # capture_end takes it out, after ending the stream's capture: where
+    # that raises (a capture the body invalidated), the state stays in
+    # capture mode and every later draw on the card raises.  A copy of the
+    # state from before the capture (a fresh state object, not in capture
+    # mode; graphsafe_get_state would share the live one) is put back then.
+    generator = torch.cuda.default_generators[index]
+    before = generator.clone_state()
     with torch.cuda.device(index):
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -71,7 +79,11 @@ def capture(fn, args: tuple, device: torch.device):
                     # is empty, and its replays take no device time
                     warnings.filterwarnings(
                         "ignore", message="The CUDA Graph is empty")
-                    graph.capture_end()
+                    try:
+                        graph.capture_end()
+                    except BaseException:
+                        generator.graphsafe_set_state(before)
+                        raise
         torch.cuda.current_stream().wait_stream(stream)
     return graph, out
 

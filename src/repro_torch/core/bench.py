@@ -354,13 +354,17 @@ class _BytesAccessed(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        self.count(func, args, kwargs, out)
+        return out
+
+    def count(self, func, args, kwargs, out):
+        """Add the bytes of one operator's inputs and outputs."""
         moved = func is torch.ops.aten._to_copy.default and \
             args[0].device != out.device
         if not func.is_view and not moved:
             for t in tree_flatten((args, kwargs, out))[0]:
                 if isinstance(t, torch.Tensor):
                     self.nbytes += t.numel() * t.element_size()
-        return out
 
 
 class CompiledCostProvider:

@@ -28,7 +28,7 @@ import re
 
 import torch
 
-from . import _build
+from . import _build, sharded
 from .ref import decode_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
 
@@ -248,6 +248,10 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
         raise ValueError("decode_attention takes no input that requires "
                          "grad while grad mode is on: the kernel has no "
                          "backward (run decode under torch.no_grad())")
+    if sharded.is_dtensor(q):
+        return sharded.decode_attention(
+            decode_attention, decode_attention_ref, q, k, v, lengths,
+            softcap=softcap, window=window, block_k=block_k)
     if q.device.type in ("cpu", "meta"):
         return decode_attention_ref(q, k, v, lengths, softcap=softcap,
                                     window=window)

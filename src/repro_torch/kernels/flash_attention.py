@@ -21,7 +21,7 @@ import re
 
 import torch
 
-from . import _build
+from . import _build, sharded
 from .ref import flash_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
 
@@ -162,6 +162,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     if (block_q is not None and block_q < 1) or \
             (block_k is not None and block_k < 1):
         raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
+    if sharded.is_dtensor(q):
+        return sharded.flash_attention(
+            flash_attention, q, k, v, causal=causal, window=window,
+            softcap=softcap, block_q=block_q, block_k=block_k)
     if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)

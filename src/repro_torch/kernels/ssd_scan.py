@@ -23,7 +23,7 @@ import re
 
 import torch
 
-from . import _build
+from . import _build, sharded
 from .ref import ssd_ref
 from .substrate import card_smem_limit
 
@@ -178,6 +178,8 @@ def ssd_scan(x, log_a, b, c, *, chunk=128):
                          f"{tuple(c.shape)}")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if sharded.is_dtensor(x):
+        return sharded.ssd_scan(ssd_scan, x, log_a, b, c, chunk=chunk)
     if x.device.type in ("cpu", "meta"):
         return ssd_ref(x, log_a, b, c, chunk=chunk)
     if x.device.type != "cuda":

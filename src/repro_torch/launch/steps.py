@@ -1,15 +1,19 @@
-"""Step functions (train / prefill / decode) and the models' parameter and
-FLOP counts: the port of ``repro/launch/steps.py``.
+"""Step functions (train / prefill / decode), input specs and shardings,
+and the models' parameter and FLOP counts: the port of
+``repro/launch/steps.py``.
 
-The reference's factories also take the sharding rules and the mesh, and
-the module builds input specs and shardings for the production mesh; those
-wait for the port of ``runtime/sharding.py`` (ROADMAP.md, slice E), so the
-factories here take the model alone.
+The factories take the sharding rules and a ``DeviceMesh`` as keywords
+and enter :func:`runtime.sharding.use_rules` around the step.  Without a
+mesh a step runs on plain tensors; under one its inputs are DTensors laid
+out as :func:`shardings_for` says, and the kernels run on each rank's shard
+(``kernels/sharded.py``).  The dry-run, the trainer and the serving engine
+all build their steps here.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 
@@ -18,6 +22,10 @@ from ..models import build_model
 from ..models import layers as L
 from ..models.moe import pad_experts
 from ..optim import AdamWConfig, apply_updates
+from ..runtime.sharding import (AxisRules, _divisible_spec, constrain,
+                                distribute_tree, is_dtensor, map_axes,
+                                multi_pod_rules, placements,
+                                single_pod_rules, use_rules)
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -36,39 +44,176 @@ def value_and_grad(loss_fn, params, batch):
             L.tree_unflatten(params, grads))
 
 
-def make_train_step(model, adamw_cfg: AdamWConfig):
+def _whole(t):
+    """A DTensor metric as the plain tensor every rank holds."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def make_train_step(model, adamw_cfg: AdamWConfig, *,
+                    rules: AxisRules | None = None, mesh=None):
     """One training step: the loss and its gradient, then AdamW, which
     updates ``params`` and ``opt_state`` in place.  Returns (params,
-    opt_state, {"loss", "nll", "aux", "grad_norm", "lr"})."""
+    opt_state, {"loss", "nll", "aux", "grad_norm", "lr"}).
+
+    Under a mesh each gradient is laid out as its parameter before AdamW
+    (a pending data-parallel sum becomes a reduce-scatter, which XLA
+    inserts by itself), and the metrics come back whole."""
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = value_and_grad(model.loss, params, batch)
-        params, opt_state, om = apply_updates(adamw_cfg, params, grads,
-                                              opt_state)
-        return params, opt_state, {"loss": loss, **metrics, **om}
+        with use_rules(rules, mesh):
+            loss, metrics, grads = value_and_grad(model.loss, params, batch)
+            if mesh is not None:
+                leaves = L.tree_leaves(params)
+                grads = L.tree_unflatten(params, [
+                    g.redistribute(p.device_mesh, p.placements)
+                    for p, g in zip(leaves, L.tree_leaves(grads))])
+            params, opt_state, om = apply_updates(adamw_cfg, params, grads,
+                                                  opt_state)
+            out = {"loss": loss, **metrics, **om}
+            if mesh is not None:
+                out = {k: _whole(v) for k, v in out.items()}
+            return params, opt_state, out
 
     return train_step
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, *, rules: AxisRules | None = None, mesh=None):
     def prefill_step(params, cache, batch):
-        kw = {}
-        if "frames" in batch:
-            kw["frames"] = batch["frames"]
-        if "patch_embeds" in batch:
-            kw["patch_embeds"] = batch["patch_embeds"]
-        return model.prefill(params, batch["tokens"], cache, **kw)
+        with use_rules(rules, mesh):
+            kw = {}
+            if "frames" in batch:
+                kw["frames"] = batch["frames"]
+            if "patch_embeds" in batch:
+                kw["patch_embeds"] = batch["patch_embeds"]
+            return model.prefill(params, batch["tokens"], cache, **kw)
 
     return prefill_step
 
 
-def make_decode_step(model):
+def make_decode_step(model, *, rules: AxisRules | None = None, mesh=None):
     def decode_step(params, cache, token, cache_len):
-        logits, cache = model.decode_step(params, token, cache, cache_len)
-        # greedy next token: what the serving engine feeds back
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        return next_tok, logits, cache
+        with use_rules(rules, mesh):
+            logits, cache = model.decode_step(params, token, cache,
+                                              cache_len)
+            # greedy next token: what the serving engine feeds back (over
+            # the whole vocabulary: gathered under a mesh)
+            last = constrain(logits[:, -1], "act_batch", None)
+            next_tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            return next_tok, logits, cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors — no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.is_encdec:
+        return {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32),
+                "frames": _meta((B, cfg.encoder_len, cfg.d_model),
+                                torch.bfloat16)}
+    if cfg.n_img_tokens:
+        S_text = S - cfg.n_img_tokens
+        return {"tokens": _meta((B, S_text), i32),
+                "labels": _meta((B, S_text), i32),
+                "patch_embeds": _meta((B, cfg.n_img_tokens, cfg.d_model),
+                                      torch.bfloat16)}
+    return {"tokens": _meta((B, S), i32), "labels": _meta((B, S), i32)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict[str, Any]:
+    """All inputs of the cell as ``meta`` tensors.  Keys depend on the
+    kind:
+
+    train   -> params, opt_state, batch
+    prefill -> params, cache, batch (labels dropped)
+    decode  -> params, cache, token, cache_len
+    """
+    model = build_model(cfg, device="meta")
+    params = L.tree_map(lambda p: _meta(p.shape, dtype), model.spec())
+    if shape.kind == "train":
+        mu = L.tree_map(lambda p: _meta(p.shape, torch.float32), params)
+        nu = L.tree_map(lambda p: _meta(p.shape, torch.float32), params)
+        opt = {"mu": mu, "nu": nu, "step": _meta((), torch.int32)}
+        return {"params": params, "opt_state": opt,
+                "batch": batch_specs(cfg, shape)}
+
+    cache = L.tree_map(lambda t: _meta(t.shape, t.dtype),
+                       model.cache_spec(shape.global_batch, shape.seq_len))
+    if shape.kind == "prefill":
+        batch = batch_specs(cfg, shape)
+        batch.pop("labels")
+        return {"params": params, "cache": cache, "batch": batch}
+
+    # decode
+    return {"params": params, "cache": cache,
+            "token": _meta((shape.global_batch, 1), torch.int32),
+            "cache_len": _meta((), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# shardings (DTensor placements)
+# ---------------------------------------------------------------------------
+
+def _shard(mesh, rules: AxisRules, axes: tuple, shape: tuple) -> tuple:
+    return placements(mesh, _divisible_spec(mesh, rules.spec(axes), shape))
+
+
+def _batch_shardings(mesh, rules, batch) -> dict[str, tuple]:
+    return {k: _shard(mesh, rules, ("act_batch", None, None)[:v.ndim],
+                      tuple(v.shape))
+            for k, v in batch.items()}
+
+
+def shardings_for(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  rules: AxisRules, specs: dict[str, Any]) -> dict[str, Any]:
+    """Placements trees matching :func:`input_specs` output."""
+    model = build_model(cfg, device="meta")
+    pshard = map_axes(lambda axes, t: _shard(mesh, rules, axes,
+                                             tuple(t.shape)),
+                      model.param_axes(), specs["params"])
+    replicated = placements(mesh, ())
+    out: dict[str, Any] = {"params": pshard}
+
+    if shape.kind == "train":
+        out["opt_state"] = {"mu": pshard, "nu": pshard, "step": replicated}
+        out["batch"] = _batch_shardings(mesh, rules, specs["batch"])
+        return out
+
+    out["cache"] = map_axes(
+        lambda axes, t: _shard(mesh, rules, axes, tuple(t.shape)),
+        model.cache_axes(shape.global_batch, shape.seq_len), specs["cache"])
+    if shape.kind == "prefill":
+        out["batch"] = _batch_shardings(mesh, rules, specs["batch"])
+    else:
+        out["token"] = _shard(mesh, rules, ("act_batch", None),
+                              tuple(specs["token"].shape))
+        out["cache_len"] = replicated
+    return out
+
+
+def shard_args(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: AxisRules,
+               args: dict[str, Any]) -> dict[str, Any]:
+    """``args`` (trees of whole tensors under :func:`input_specs`' keys) as
+    DTensors laid out by :func:`shardings_for`; on a mesh of one rank each
+    wraps its tensor, no copy."""
+    shards = shardings_for(cfg, shape, mesh, rules, input_specs(cfg, shape))
+    return {k: distribute_tree(v, mesh, shards[k]) for k, v in args.items()}
+
+
+def rules_for(shape: ShapeConfig, *, multi_pod: bool) -> AxisRules:
+    rules = multi_pod_rules() if multi_pod else single_pod_rules()
+    if shape.kind == "decode":
+        # single-token step: no sequence dim to shard
+        rules = rules.with_overrides(act_seq=None)
+    return rules
 
 
 # ---------------------------------------------------------------------------

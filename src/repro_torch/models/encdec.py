@@ -37,6 +37,7 @@ from .._device import resolve_device
 from ..core.graph import TensorSpec
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..runtime.sharding import constrain, flatten, unflatten
 from . import layers as L
 from .lm import _index
 
@@ -116,6 +117,9 @@ class EncDecLM:
     def abstract_params(self, dtype=torch.bfloat16):
         return L.abstract_tree(self.spec(), dtype)
 
+    def param_axes(self):
+        return L.axes_tree(self.spec())
+
     def _normf(self):
         return L.rmsnorm if self.cfg.norm == "rmsnorm" else L.layernorm
 
@@ -136,6 +140,7 @@ class EncDecLM:
         x = frames.to(torch.bfloat16) + sinusoidal(
             frames.shape[1], self.cfg.d_model,
             device=frames.device).to(torch.bfloat16)[None]
+        x = constrain(x, "act_batch", "act_seq", None)
         layer = self.encoder_layer
         if self.cfg.remat and L.grad_needed(params["encoder"]):
             layer = L.remat(layer)
@@ -170,8 +175,10 @@ class EncDecLM:
             out = decode_attention(q[:, 0], k.to(q.dtype), v.to(q.dtype),
                                    lengths)[:, None]
         H, hd = out.shape[2], out.shape[3]
-        y = L.matmul(out.reshape(B * S, H * hd), p["wo"].reshape(H * hd, -1))
-        return y.view(B, S, -1), (k, v)
+        y = L.matmul(flatten(flatten(out, 2, 3), 0, 1),
+                     p["wo"].reshape(H * hd, -1))
+        y = constrain(unflatten(y, 0, (B, S)), "act_batch", "act_seq", None)
+        return y, (k, v)
 
     def decoder_layer(self, pg, x, memory, cache_g, *, positions, cache_len,
                       mode):
@@ -211,7 +218,8 @@ class EncDecLM:
         x = L.embed(params["embed"], tokens)
         pe = sinusoidal(tokens.shape[1], self.cfg.d_model, offset=offset,
                         device=x.device).to(x.dtype)
-        return x + (pe if pe.ndim == 3 else pe[None])
+        x = x + (pe if pe.ndim == 3 else pe[None])
+        return constrain(x, "act_batch", "act_seq", None)
 
     def forward(self, params, tokens, frames):
         """Teacher-forced pass (the reference's ``loss`` without its
@@ -248,6 +256,13 @@ class EncDecLM:
 
         return {"self": {"k": stack(kv), "v": stack(kv)},
                 "cross": {"xk": stack(xs), "xv": stack(xs)}}
+
+    def cache_axes(self, batch: int, max_len: int) -> dict:
+        """The logical axes of :meth:`cache_spec`'s leaves, the
+        reference's."""
+        kv = ("layers", *L.attention_cache_axes(self.cfg))
+        xs = ("layers", "act_batch", None, "act_heads", None)
+        return {"self": {"k": kv, "v": kv}, "cross": {"xk": xs, "xv": xs}}
 
     def init_cache(self, batch: int, max_len: int):
         return L.tree_map(

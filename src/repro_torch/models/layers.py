@@ -42,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.graph import TensorSpec
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..runtime.sharding import (constrain, flatten, is_dtensor, unflatten,
+                                write_rows, write_seq)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +120,15 @@ def grad_needed(*trees) -> bool:
 
 def abstract_tree(spec, dtype=torch.bfloat16):
     return tree_map(lambda p: TensorSpec(p.shape, dtype), spec)
+
+
+def axes_tree(spec):
+    """The logical axes of each :class:`Pm` of ``spec`` (a dict tree), as
+    tuples; ``runtime.sharding.map_axes`` walks the result, taking each
+    tuple as a leaf."""
+    if isinstance(spec, dict):
+        return {k: axes_tree(v) for k, v in spec.items()}
+    return spec.axes
 
 
 # draws larger than this many values are made in pieces of it, so that a
@@ -310,16 +321,22 @@ def sdpa(q, k, v, *, q_pos, k_pos, causal=True, window=None, softcap=None,
 def matmul(a, b):
     """``a @ b`` in the wider of their dtypes, as JAX promotes a bf16
     activation times fp32 weights (the encoder-decoder's encoder starts in
-    bf16 whatever the parameters' dtype); no copy when they agree."""
+    bf16 whatever the parameters' dtype); no copy when they agree.  A
+    DTensor ``a`` of more than two dimensions is flattened to rows first,
+    as ``a @ b`` folds them, by :func:`~..runtime.sharding.flatten` (so a
+    split sequence is gathered where a view cannot keep it)."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if a.ndim > 2 and is_dtensor(a):
+        y = flatten(a.to(dt), 0, -2) @ b.to(dt)
+        return unflatten(y, 0, a.shape[:-1])
     return a.to(dt) @ b.to(dt)
 
 
 def _project(x, w):
     """``einsum("bsd,d...->bs...", x, w)`` as one matrix product."""
     B, S, D = x.shape
-    return matmul(x.reshape(B * S, D), w.reshape(D, -1)).view(
-        B, S, *w.shape[1:])
+    y = matmul(flatten(x, 0, 1), w.reshape(D, -1))
+    return unflatten(unflatten(y, 1, w.shape[1:]), 0, (B, S))
 
 
 def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
@@ -348,6 +365,7 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
     if use_rope:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
+    q = constrain(q, "act_batch", None, "act_heads", None)
 
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=causal, window=window,
@@ -355,8 +373,8 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
     elif isinstance(cache_len, int):
         ck, cv = kv_cache["k"], kv_cache["v"]
         end = cache_len + S
-        ck[:, cache_len:end] = k
-        cv[:, cache_len:end] = v
+        write_seq(ck, cache_len, k)
+        write_seq(cv, cache_len, v)
         if cache_len == 0:
             # causal attention aligned at position 0 over the rows just
             # written, as stored (rounded to the cache's dtype)
@@ -378,10 +396,9 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
         ck, cv = kv_cache["k"], kv_cache["v"]
         # row cache_len[b] of each slot, clamped as the reference's dynamic
         # update slice clamps its start
-        rows = torch.arange(B, device=x.device)
         at = cache_len.clamp(0, ck.shape[1] - 1).long()
-        ck[rows, at] = k[:, 0].to(ck.dtype)
-        cv[rows, at] = v[:, 0].to(cv.dtype)
+        write_rows(ck, at, k[:, 0].to(ck.dtype))
+        write_rows(cv, at, v[:, 0].to(cv.dtype))
         # the kernels take one dtype: a model in fp32 reads a copy of its
         # bf16 cache (bf16 models, the card's, read it as it is)
         q1, ck, cv = q[:, 0], ck.to(q.dtype), cv.to(q.dtype)
@@ -389,8 +406,10 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
                                softcap=softcap, window=window)[:, None]
 
     H, hd = out.shape[2], out.shape[3]
-    y = matmul(out.reshape(B * S, H * hd), p["wo"].reshape(H * hd, -1))
-    return y.view(B, S, -1), kv_cache
+    y = matmul(flatten(flatten(out, 2, 3), 0, 1),
+               p["wo"].reshape(H * hd, -1))
+    y = constrain(unflatten(y, 0, (B, S)), "act_batch", "act_seq", None)
+    return y, kv_cache
 
 
 def attention_cache_spec(cfg, batch: int, max_len: int) -> TensorSpec:
@@ -398,6 +417,14 @@ def attention_cache_spec(cfg, batch: int, max_len: int) -> TensorSpec:
     bf16, as the reference keeps it."""
     return TensorSpec((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
                       torch.bfloat16)
+
+
+def attention_cache_axes(cfg, kv_seq_axis: str = "act_kv_seq") -> tuple:
+    """The logical axes of :func:`attention_cache_spec`: by kv heads where
+    16 ranks take them evenly, else by sequence (split-KV decode)."""
+    if cfg.n_kv_heads % 16 == 0:
+        return ("act_batch", None, "act_heads", None)
+    return ("act_batch", kv_seq_axis, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +450,9 @@ def mlp(p, x, activation: str = "gelu"):
         h = act(matmul(x, p["w_gate"])) * h
     else:
         h = act(h)
-    return matmul(h, p["w_down"])
+    h = constrain(h, "act_batch", None, "act_ff")
+    y = matmul(h, p["w_down"])
+    return constrain(y, "act_batch", "act_seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -437,15 +466,19 @@ def embed_spec(vocab: int, d_model: int) -> dict:
 
 
 def embed(p, tokens, scale_by_dim: bool = False):
-    x = F.embedding(tokens.long(), p["table"])
+    # the table's own layout: it pins the table gradient's layout in the
+    # backward
+    t = constrain(p["table"], "act_vocab", None)
+    x = F.embedding(tokens.long(), t)
     if scale_by_dim:
         x = x * _scalar(math.sqrt(p["table"].shape[1]), x)
-    return x
+    return constrain(x, "act_batch", "act_seq", None)
 
 
 def unembed(p, x, softcap: float | None = None):
-    logits = (x @ p["table"].T).float()
-    return _softcap(logits, softcap)
+    logits = matmul(x, p["table"].T).float()
+    logits = _softcap(logits, softcap)
+    return constrain(logits, "act_batch", None, "act_vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -458,9 +491,9 @@ def _chunk_loss(table, xc, yc, softcap):
     logits = unembed({"table": table}, xc, softcap=softcap)
     logz = torch.logsumexp(logits, dim=-1)
     # the gold logit as <x, table[label]>, rounded as the logits are
-    gold = _softcap(torch.einsum("bsd,bsd->bs", xc,
-                                 F.embedding(yc.clamp(min=0).long(), table))
-                    .float(), softcap)
+    rows = constrain(F.embedding(yc.clamp(min=0).long(), table),
+                     "act_batch", None, None)
+    gold = _softcap(torch.einsum("bsd,bsd->bs", xc, rows).float(), softcap)
     valid = yc >= 0
     return (torch.where(valid, logz - gold, 0.0).sum(),
             valid.sum().float())
@@ -477,6 +510,8 @@ def cross_entropy_loss(embed_params, x, labels, *, softcap=None,
     reference's ``jax.checkpoint`` scan body)."""
     S = x.shape[1]
     table = embed_params["table"]
+    # the sequence gathered once, before the chunks split it
+    x = constrain(x, "act_batch", None, None)
     if seq_chunk is not None and S % seq_chunk != 0:
         seq_chunk = next(c for c in range(min(seq_chunk, S), 0, -1)
                          if S % c == 0)

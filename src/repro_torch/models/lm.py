@@ -30,11 +30,12 @@ import torch
 
 from .._device import resolve_device
 from ..core.graph import TensorSpec
+from ..runtime.sharding import constrain
 from . import layers as L
 from .moe import moe, moe_spec
-from .ssm import mamba2, mamba2_spec, mamba2_state_specs
-from .xlstm import (mlstm, mlstm_spec, mlstm_state_specs, slstm, slstm_spec,
-                    slstm_state_specs)
+from .ssm import mamba2, mamba2_spec, mamba2_state_axes, mamba2_state_specs
+from .xlstm import (mlstm, mlstm_spec, mlstm_state_axes, mlstm_state_specs,
+                    slstm, slstm_spec, slstm_state_axes, slstm_state_specs)
 
 KINDS = frozenset({"attn", "attn_local", "mlp", "moe", "mamba2", "mlstm",
                    "slstm"})
@@ -156,6 +157,31 @@ def _sub_cache_spec(cfg, kind: str, batch: int, max_len: int):
     return None
 
 
+def _sub_cache_axes(cfg, kind: str):
+    """The logical axes of :func:`_sub_cache_spec`'s leaves."""
+    if kind in ("attn", "attn_local"):
+        kv = L.attention_cache_axes(cfg)
+        return {"k": kv, "v": kv}
+    if kind == "mamba2":
+        ssm, conv = mamba2_state_axes()
+        return {"ssm": ssm, "conv": conv}
+    if kind == "mlstm":
+        mat, conv = mlstm_state_axes()
+        return {"mat": mat, "conv": conv}
+    if kind == "slstm":
+        return {"s": slstm_state_axes()}
+    return None
+
+
+def _stack_axes(tree):
+    """``("layers", *axes)`` for each axes tuple of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    if all(isinstance(a, tuple) for a in tree):     # the sLSTM's four
+        return tuple(_stack_axes(a) for a in tree)
+    return ("layers", *tree)
+
+
 def _index(tree, i: int):
     """Entry ``i`` of every stacked leaf (views)."""
     return L.tree_map(lambda a: a[i], tree)
@@ -208,6 +234,9 @@ class DecoderLM:
     def abstract_params(self, dtype=torch.bfloat16):
         return L.abstract_tree(self.spec(), dtype)
 
+    def param_axes(self):
+        return L.axes_tree(self.spec())
+
     # -- caches ---------------------------------------------------------------
     def cache_spec(self, batch: int, max_len: int) -> dict:
         """Stacked (G, ...) decode-cache specs: {name: {leaf: TensorSpec}}."""
@@ -223,6 +252,19 @@ class DecoderLM:
             kv = L.attention_cache_spec(cfg, batch, max_len)
             stacked = TensorSpec((cfg.n_groups, *kv.shape), kv.dtype)
             out["shared_attn"] = {"k": stacked, "v": stacked}
+        return out
+
+    def cache_axes(self, batch: int, max_len: int) -> dict:
+        """The logical axes of :meth:`cache_spec`'s leaves, the reference's
+        (``("layers", *axes)``)."""
+        out = {}
+        for n, k in zip(self.sub_names, self.kinds):
+            sub = _sub_cache_axes(self.cfg, k)
+            if sub is not None:
+                out[n] = _stack_axes(sub)
+        if self.cfg.shared_attn_period:
+            kv = _stack_axes(L.attention_cache_axes(self.cfg))
+            out["shared_attn"] = {"k": kv, "v": kv}
         return out
 
     def init_cache(self, batch: int, max_len: int):
@@ -272,7 +314,7 @@ class DecoderLM:
                     scale_by_dim=self.cfg.embed_scale)
         if patch_embeds is not None:
             x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
-        return x
+        return constrain(x, "act_batch", "act_seq", None)
 
     def forward(self, params, tokens, patch_embeds=None):
         """Full-sequence pass -> (final hidden states, aux): the MoE

@@ -26,11 +26,14 @@ and granite-moe-3b (40 routed top-8, no shared expert).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..runtime.sharding import (constrain, flatten, is_dtensor, per_shard,
+                                unflatten)
 from .layers import _ACTIVATIONS, Pm, mlp, mlp_spec
 
 
@@ -68,7 +71,8 @@ def _groups(x, group_size: int):
     if T % g:
         raise ValueError(f"moe: {T} tokens are not a multiple of the group "
                          f"size {g}")
-    return x.reshape(T // g, g, D), g
+    xt = unflatten(flatten(x, 0, 1), 0, (T // g, g))
+    return constrain(xt, "act_batch", None, None), g
 
 
 def _route(p, xt, *, top_k: int, n_experts: int):
@@ -95,12 +99,32 @@ def _aux(probs, idx, n_experts: int):
     return n_experts * (density * p_mean).sum()
 
 
+class _Dense(torch.autograd.Function):
+    """A DTensor's shard made contiguous, and its gradient too: a shard of
+    the experts is a strided slice, which the einsums' views (forward and
+    backward) cannot take."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _dense(t):
+    return _Dense.apply(t) if is_dtensor(t) else t
+
+
 def _experts(p, xe, activation: str):
     """The gated expert MLPs on dispatched tokens xe (n, E, C, D)."""
     act = _ACTIVATIONS[activation]
-    h = torch.einsum("necd,edf->necf", xe, p["w_up"])
-    gt = torch.einsum("necd,edf->necf", xe, p["w_gate"])
-    return torch.einsum("necf,efd->necd", act(gt) * h, p["w_down"])
+    xe = _dense(constrain(xe, None, "act_experts", None, None))
+    h = _dense(torch.einsum("necd,edf->necf", xe, p["w_up"]))
+    gt = _dense(torch.einsum("necd,edf->necf", xe, p["w_gate"]))
+    ye = _dense(torch.einsum("necf,efd->necd", act(gt) * h, p["w_down"]))
+    return constrain(ye, None, "act_experts", None, None)
 
 
 def _shared(p, xt, yt, activation: str):
@@ -154,25 +178,16 @@ def moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float = 1.25,
     ye = _experts(p, xe, activation)
     yt = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye)
     yt = _shared(p, xt, yt, activation)
-    return yt.reshape(B, S, D), aux
+    yt = unflatten(flatten(yt, 0, 1), 0, (B, S))
+    return constrain(yt, "act_batch", "act_seq", None), aux
 
 
-def moe_sort(p, x, *, top_k: int, n_experts: int,
-             capacity_factor: float = 1.25, activation: str = "silu",
-             group_size: int = 512):
-    """Sort-based dispatch: the one-hots replaced by an argsort over the
-    routing slots plus index gathers, with the one-hot path's routing
-    (token-choice top-k, per-group capacity C, overflow slots dropped in
-    slot order)."""
-    B, S, D = x.shape
-    E = p["router"].shape[1]
-    xt, g = _groups(x, group_size)
-    n = xt.shape[0]
-    dev = x.device
-    probs, gate_vals, gate_idx = _route(p, xt, top_k=top_k,
-                                        n_experts=n_experts)
-
-    C = _capacity(g, E, top_k, capacity_factor)
+def _slots(gate_idx, *, g: int, C: int, E: int, top_k: int):
+    """The sort-based dispatch's indices within each group (row): the
+    token of each expert slot (sentinel ``g`` for an empty one), and each
+    routing slot's expert slot and whether it was kept."""
+    n = gate_idx.shape[0]
+    dev = gate_idx.device
     gk = g * top_k
     # routing slots in (token-major, k) order, as the one-hot path
     flat_e = gate_idx.reshape(n, gk)
@@ -194,7 +209,33 @@ def moe_sort(p, x, *, top_k: int, n_experts: int,
     tok_for_slot = torch.full((n, E * C + 1), g, dtype=torch.long,
                               device=dev)
     tok_for_slot.scatter_(1, safe_slot, tok_sorted)
-    tok_for_slot = tok_for_slot[:, :E * C]
+
+    pos_unsorted = torch.zeros((n, gk), dtype=torch.long, device=dev) \
+        .scatter(1, order, pos_sorted)
+    keep_unsorted = torch.gather(keep_sorted, 1, torch.argsort(order, dim=1))
+    slot_unsorted = flat_e * C + pos_unsorted.clamp(0, C - 1)
+    return tok_for_slot[:, :E * C], slot_unsorted, keep_unsorted
+
+
+def moe_sort(p, x, *, top_k: int, n_experts: int,
+             capacity_factor: float = 1.25, activation: str = "silu",
+             group_size: int = 512):
+    """Sort-based dispatch: the one-hots replaced by an argsort over the
+    routing slots plus index gathers, with the one-hot path's routing
+    (token-choice top-k, per-group capacity C, overflow slots dropped in
+    slot order)."""
+    B, S, D = x.shape
+    E = p["router"].shape[1]
+    xt, g = _groups(x, group_size)
+    n = xt.shape[0]
+    probs, gate_vals, gate_idx = _route(p, xt, top_k=top_k,
+                                        n_experts=n_experts)
+
+    C = _capacity(g, E, top_k, capacity_factor)
+    gk = g * top_k
+    tok_for_slot, slot_unsorted, keep_unsorted = per_shard(
+        functools.partial(_slots, g=g, C=C, E=E, top_k=top_k), gate_idx,
+        dims=(0,), outputs=3)
 
     # dispatch: the token vectors gathered into the expert slots (a zero
     # row for an empty slot)
@@ -203,10 +244,6 @@ def moe_sort(p, x, *, top_k: int, n_experts: int,
     ye = _experts(p, xe.reshape(n, E, C, D), activation)
 
     # combine: each token gathers its k expert slots back
-    pos_unsorted = torch.zeros((n, gk), dtype=torch.long, device=dev) \
-        .scatter(1, order, pos_sorted)
-    keep_unsorted = torch.gather(keep_sorted, 1, torch.argsort(order, dim=1))
-    slot_unsorted = flat_e * C + pos_unsorted.clamp(0, C - 1)
     gathered = torch.gather(ye.reshape(n, E * C, D), 1,
                             slot_unsorted[..., None].expand(n, gk, D))
     w = (gate_vals.reshape(n, gk) * keep_unsorted.float()).to(x.dtype)
@@ -215,4 +252,5 @@ def moe_sort(p, x, *, top_k: int, n_experts: int,
 
     aux = _aux(probs, gate_idx, n_experts)
     yt = _shared(p, xt, yt, activation)
-    return yt.reshape(B, S, D), aux
+    yt = unflatten(flatten(yt, 0, 1), 0, (B, S))
+    return constrain(yt, "act_batch", "act_seq", None), aux

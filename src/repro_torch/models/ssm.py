@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from ..core.graph import TensorSpec
 from ..kernels.ssd_scan import ssd_scan
 from ..kernels.substrate import DEFAULT_PARAMS, serving_param
-from .layers import Pm, rmsnorm, rmsnorm_spec
+from ..runtime.sharding import constrain, flatten, unflatten
+from .layers import Pm, matmul, rmsnorm, rmsnorm_spec
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +73,12 @@ def ssd_decode_step(state, x, log_a, b, c):
     a = torch.exp(log_a[:, 0].float())                  # (B, H)
     st = state * a[:, :, None, None] + torch.einsum(
         "bhn,bhp->bhnp", b[:, 0].float(), x[:, 0].float())
-    y = torch.einsum("bhn,bhnp->bhp", c[:, 0].float(), st)
+    # einsum("bhn,bhnp->bhp") as the batched product it runs, over rows
+    # that flatten/unflatten lay out (a DTensor's heads split kept apart)
+    B, H, N, P = st.shape
+    y = torch.bmm(flatten(c[:, 0].float(), 0, 1)[:, None],
+                  flatten(st, 0, 1))[:, 0]
+    y = unflatten(y, 0, (B, H))
     return y[:, None].to(x.dtype), st
 
 
@@ -136,7 +142,7 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
     N = cfg.ssm_state
     P = cfg.ssm_head_dim
 
-    h = x @ p["w_in"]
+    h = constrain(matmul(x, p["w_in"]), "act_batch", None, "act_ff")
     z, xbc, dt = _split_in(cfg, h)
     xbc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], xbc,
                                  state=conv_state)
@@ -146,7 +152,7 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
     a = -torch.exp(p["a_log"].float())                  # (H,) negative
     log_a = dt * a                                      # (B,S,H)
 
-    xh = xs.reshape(B, S, H, P) * dt[..., None].to(xs.dtype)
+    xh = unflatten(xs, 2, (H, P)) * dt[..., None].to(xs.dtype)
 
     if decode:
         if state is None:
@@ -162,10 +168,11 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
                            c_out[:, :, None, :], chunk=cfg.ssm_chunk,
                            initial_state=state)
 
-    y = y + xs.reshape(B, S, H, P) * p["d_skip"].to(xs.dtype)[:, None]
-    y = y.reshape(B, S, d_inner)
+    y = y + unflatten(xs, 2, (H, P)) * p["d_skip"].to(xs.dtype)[:, None]
+    y = flatten(y, 2, 3)
     y = rmsnorm(p["norm"], y) * F.silu(z)
-    return y @ p["w_out"], (new_state, new_conv)
+    out = constrain(matmul(y, p["w_out"]), "act_batch", "act_seq", None)
+    return out, (new_state, new_conv)
 
 
 def mamba2_state_specs(cfg, batch: int) -> tuple[TensorSpec, TensorSpec]:
@@ -176,3 +183,9 @@ def mamba2_state_specs(cfg, batch: int) -> tuple[TensorSpec, TensorSpec]:
                      torch.float32)
     conv = TensorSpec((batch, cfg.ssm_conv - 1, conv_dim), torch.bfloat16)
     return ssm, conv
+
+
+def mamba2_state_axes() -> tuple[tuple, tuple]:
+    """The logical axes of :func:`mamba2_state_specs`."""
+    return ("act_batch", "act_heads", None, None), ("act_batch", None,
+                                                    "act_ff")

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.graph import TensorSpec
-from .layers import _ACTIVATIONS, Pm, rmsnorm, rmsnorm_spec
+from ..runtime.sharding import constrain, flatten, per_shard, unflatten
+from .layers import _ACTIVATIONS, Pm, matmul, rmsnorm, rmsnorm_spec
 from .ssm import _causal_conv, ssd, ssd_decode_step
 
 
@@ -61,19 +62,21 @@ def mlstm(p, cfg, x, *, state=None, conv_state=None, decode=False):
     B, S, D = x.shape
     d_inner, H, hd = mlstm_dims(cfg)
 
-    xi, z = (x @ p["w_up"]).chunk(2, dim=-1)
+    up = constrain(matmul(x, p["w_up"]), "act_batch", None, "act_ff")
+    xi, z = up.chunk(2, dim=-1)
     xc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], xi,
                                 state=conv_state)
 
-    q = (xc @ p["wq"]).reshape(B, S, H, hd)
-    k = (xc @ p["wk"]).reshape(B, S, H, hd)
-    v = (xi @ p["wv"]).reshape(B, S, H, hd)
+    q = unflatten(matmul(xc, p["wq"]), 2, (H, hd))
+    k = unflatten(matmul(xc, p["wk"]), 2, (H, hd))
+    v = unflatten(matmul(xi, p["wv"]), 2, (H, hd))
     k = k / math.sqrt(hd)
 
-    gates = xc @ p["w_if"] + p["b_if"]
+    gates = matmul(xc, p["w_if"]) + p["b_if"]
     i_gate, f_gate = gates.float().chunk(2, dim=-1)
-    log_f = F.logsigmoid(f_gate)                        # (B,S,H) decay
-    i_in = torch.exp(F.logsigmoid(i_gate))              # bounded injection
+    # log-sigmoid per shard: DTensor has no rule for its backward
+    log_f = per_shard(F.logsigmoid, f_gate)             # (B,S,H) decay
+    i_in = torch.exp(per_shard(F.logsigmoid, i_gate))   # bounded injection
 
     xh = v * i_in[..., None].to(v.dtype)
     if decode:
@@ -85,9 +88,10 @@ def mlstm(p, cfg, x, *, state=None, conv_state=None, decode=False):
         y, new_state = ssd(xh, log_f, k, q, chunk=cfg.ssm_chunk,
                            initial_state=state)
 
-    y = y.reshape(B, S, d_inner)
+    y = flatten(y, 2, 3)
     y = rmsnorm(p["norm"], y) * F.silu(z)
-    return y @ p["w_down"], (new_state, new_conv)
+    out = constrain(matmul(y, p["w_down"]), "act_batch", "act_seq", None)
+    return out, (new_state, new_conv)
 
 
 def mlstm_state_specs(cfg, batch: int) -> tuple[TensorSpec, TensorSpec]:
@@ -96,6 +100,12 @@ def mlstm_state_specs(cfg, batch: int) -> tuple[TensorSpec, TensorSpec]:
     d_inner, H, hd = mlstm_dims(cfg)
     return (TensorSpec((batch, H, hd, hd), torch.float32),
             TensorSpec((batch, 3, d_inner), torch.bfloat16))
+
+
+def mlstm_state_axes() -> tuple[tuple, tuple]:
+    """The logical axes of :func:`mlstm_state_specs`."""
+    return ("act_batch", "act_heads", None, None), ("act_batch", None,
+                                                    "act_ff")
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +136,7 @@ def _slstm_cell(r, carry, wx_t):
     c, n, h, m = carry
     pre = wx_t + torch.einsum("bhd,hdg->bhg", h, r)     # (B, H, 4*hd)
     i_t, f_t, z_t, o_t = pre.chunk(4, dim=-1)
-    log_fm = F.logsigmoid(f_t) + m
+    log_fm = per_shard(F.logsigmoid, f_t) + m
     m_new = torch.maximum(log_fm, i_t)                  # stabiliser
     i_s = torch.exp(i_t - m_new)
     f_s = torch.exp(log_fm - m_new)
@@ -148,7 +158,7 @@ def slstm(p, cfg, x, *, state=None, decode=False):
     hd = D // H
 
     xn = rmsnorm(p["norm_in"], x)
-    wx = (xn @ p["w_in"] + p["b"]).float().reshape(B, S, H, 4 * hd)
+    wx = unflatten((matmul(xn, p["w_in"]) + p["b"]).float(), 2, (H, 4 * hd))
     if state is None:
         zeros = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = (zeros, zeros, zeros,
@@ -166,12 +176,13 @@ def slstm(p, cfg, x, *, state=None, decode=False):
             outs.append(h)
         new_state, hs = carry, torch.stack(outs, dim=1)  # (B, S, H, hd)
 
-    x = x + hs.reshape(B, S, D).to(x.dtype)
+    x = x + constrain(flatten(hs, 2, 3).to(x.dtype),
+                      "act_batch", "act_seq", None)
 
     # post-FFN (GLU) with its own residual
-    a, g = (rmsnorm(p["norm_ff"], x) @ p["w_ff_up"]).chunk(2, dim=-1)
-    y = (_ACTIVATIONS["gelu"](g) * a) @ p["w_ff_down"]
-    return x + y, new_state
+    a, g = matmul(rmsnorm(p["norm_ff"], x), p["w_ff_up"]).chunk(2, dim=-1)
+    y = matmul(_ACTIVATIONS["gelu"](g) * a, p["w_ff_down"])
+    return x + constrain(y, "act_batch", "act_seq", None), new_state
 
 
 def slstm_state_specs(cfg, batch: int) -> tuple[TensorSpec, ...]:
@@ -179,3 +190,8 @@ def slstm_state_specs(cfg, batch: int) -> tuple[TensorSpec, ...]:
     H = cfg.n_heads
     s = TensorSpec((batch, H, cfg.d_model // H), torch.float32)
     return (s, s, s, s)
+
+
+def slstm_state_axes() -> tuple[tuple, ...]:
+    """The logical axes of each of :func:`slstm_state_specs`' four."""
+    return (("act_batch", "act_heads", None),) * 4

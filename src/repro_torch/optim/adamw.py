@@ -32,13 +32,16 @@ class AdamWConfig:
 
 def init_state(params):
     """Optimizer state on the parameters' device: fp32 first and second
-    moments and an int32 step counter."""
+    moments laid out as the parameters (DTensors of their placements under
+    a mesh) and an int32 step counter."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
-    return {"mu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params),
-            "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params),
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
+
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 

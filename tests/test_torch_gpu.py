@@ -767,6 +767,52 @@ def test_block_that_cannot_be_captured_raises(cuda):
     assert torch.equal(x + 1, torch.full((4, 8), 2.0, device=cuda))
 
 
+def _draws(device):
+    """The default CUDA generator draws, and its draws follow its seed."""
+    torch.manual_seed(5)
+    a = torch.randn(1000, device=device)
+    torch.manual_seed(5)
+    assert torch.equal(a, torch.randn(1000, device=device))
+    assert torch.isfinite(a).all() and a.std() > 0.5
+
+
+def test_default_generator_draws_after_captures_and_block_timing(cuda):
+    """After a successful capture and replays, after a capture whose body
+    raises, and after the TimingProvider and the autotuner have timed a
+    block, ``torch.randn(..., device="cuda")`` still draws from the
+    default generator."""
+    from repro_torch._device import capture, replay_seconds
+    from repro_torch.core import (LayerNode, Resource, TimingProvider,
+                                  linear_graph)
+    from repro_torch.core.resources import CLOUD_VM
+    from repro_torch.kernels import KernelAutotuner
+    x = torch.ones(64, 64, device=cuda)
+    x @ x                       # the warm-up every timer runs first
+    _draws(cuda)
+    assert len(replay_seconds(lambda t: t @ t, (x,), 3, cuda)) == 3
+    _draws(cuda)
+
+    def fails(t):
+        t = t * 2
+        raise ValueError("the body raises mid-capture")
+
+    with pytest.raises(ValueError):
+        capture(fails, (x,), cuda)
+    _draws(cuda)
+    with pytest.raises(RuntimeError):          # a host sync mid-capture
+        capture(lambda t: t * t.sum().item(), (x,), cuda)
+    _draws(cuda)
+
+    g = linear_graph("dense", TensorSpec((4, 64), torch.float32),
+                     [LayerNode("dense", "dense",
+                                apply=lambda t: torch.tanh(t @ x))])
+    blk = fuse_blocks(g)[-1]
+    TimingProvider(device=cuda).measure(
+        blk, Resource("cloud", "cloud", CLOUD_VM), runs=3)
+    KernelAutotuner(device=cuda)._time_candidate(lambda t: t @ t, (x,))
+    _draws(cuda)
+
+
 # -- the LM models and the serving engine on the card --------------------------
 LM_SMALL = dict(d_model=64, n_heads=4, head_dim=16, d_ff=128, vocab=128,
                 ssm_state=16, ssm_head_dim=16, ssm_chunk=16, window=16)
@@ -1144,3 +1190,132 @@ def test_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
     for g, w in zip(L.tree_leaves(got), L.tree_leaves(tree)):
         assert g.device.type == "cpu" and g.dtype == w.dtype
         assert torch.equal(g, w.cpu())
+
+
+# -- the sharded steps on a 1 x 1 mesh of the card ----------------------------
+def _local_leaves(tree):
+    from repro_torch.models import layers as L
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in L.tree_leaves(tree)]
+
+
+def test_sharded_train_step_on_a_1x1_mesh_equals_the_unsharded(cuda):
+    """fp32 zamba2 (reduced, remat, loss chunks): two sharded train steps
+    on a 1 x 1 ``DeviceMesh`` of the card give the unsharded steps' losses
+    and parameters bit for bit, and flash and the SSD launch inside the
+    mesh (``local_map``), forward and backward."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_train_step, rules_for, \
+        shard_args
+    from repro_torch.optim import AdamWConfig, init_state
+    model = _small_lm("zamba2-2.7b", cuda)
+    model.cfg = model.cfg.replace(remat=True, loss_seq_chunk=16)
+    rng = np.random.default_rng(15)
+    batch = {k: torch.from_numpy(rng.integers(0, 128, (2, 32),
+                                              dtype=np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    shape = ShapeConfig("t", 32, 2, "train")
+    rules = rules_for(shape, multi_pod=False)
+    mesh = make_smoke_mesh(cuda)
+    runs = []
+    for sharded in (False, True):
+        params = model.init(seed=3, dtype=torch.float32)
+        args = {"params": params, "opt_state": init_state(params),
+                "batch": batch}
+        kw = {}
+        if sharded:
+            args = shard_args(model.cfg, shape, mesh, rules, args)
+            kw = dict(rules=rules, mesh=mesh)
+        step = make_train_step(model, AdamWConfig(lr=1e-2), **kw)
+        counts = (fa_mod.launches, ssd_mod.launches,
+                  fa_mod.backward_launches, ssd_mod.backward_launches)
+        losses = []
+        for _ in range(2):
+            args["params"], args["opt_state"], m = step(
+                args["params"], args["opt_state"], args["batch"])
+            losses.append(m["loss"])
+        after = (fa_mod.launches, ssd_mod.launches,
+                 fa_mod.backward_launches, ssd_mod.backward_launches)
+        assert all(a > b for a, b in zip(after, counts))
+        runs.append((losses, _local_leaves(args["params"])))
+    (l0, p0), (l1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1)), (l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b"])
+def test_sharded_serving_steps_on_a_1x1_mesh_equal_the_unsharded(cuda, arch):
+    """fp32: the sharded prefill and four greedy decode steps (decode under
+    ``rules_for(decode)``) on a 1 x 1 mesh of the card give the unsharded
+    steps' logits and tokens bit for bit, through each kernel of the path."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, rules_for,
+                                          shard_args)
+    model = _small_lm(arch, cuda)
+    mesh = make_smoke_mesh(cuda)
+    B, S, max_len = 2, 16, 32
+    pshape = ShapeConfig("p", max_len, B, "prefill")
+    dshape = ShapeConfig("d", max_len, B, "decode")
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 128, (B, S), dtype=np.int32)).to(cuda)
+    runs = []
+    for sharded in (False, True):
+        params = model.init(seed=4, dtype=torch.float32)
+        cache = model.init_cache(B, max_len)
+        counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+        if sharded:
+            pr, dr = (rules_for(s, multi_pod=False) for s in (pshape, dshape))
+            a = shard_args(model.cfg, pshape, mesh, pr,
+                           {"params": params, "cache": cache,
+                            "batch": {"tokens": tokens}})
+            params, cache, batch = a["params"], a["cache"], a["batch"]
+            prefill = make_prefill_step(model, rules=pr, mesh=mesh)
+            decode = make_decode_step(model, rules=dr, mesh=mesh)
+        else:
+            batch = {"tokens": tokens}
+            prefill, decode = make_prefill_step(model), make_decode_step(model)
+        with torch.no_grad():
+            logits, cache = prefill(params, cache, batch)
+            outs = [logits]
+            tok = torch.argmax(outs[0][:, -1], dim=-1).to(torch.int32)[:, None]
+            for i in range(4):
+                clen = torch.tensor(S + i, dtype=torch.int32, device=cuda)
+                args = {"token": tok.full_tensor() if sharded else tok,
+                        "cache_len": clen}
+                if sharded:
+                    args = shard_args(model.cfg, dshape, mesh, dr, args)
+                tok, logits, cache = decode(params, cache, args["token"],
+                                            args["cache_len"])
+                outs += [logits, tok]
+        after = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+        launched = {k for k, b, a in zip(("flash", "ssd", "decode"), counts,
+                                         after) if a > b}
+        assert launched == LM_KERNELS[arch]
+        runs.append([o.full_tensor() if hasattr(o, "full_tensor") else o
+                     for o in outs])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_decode_cache_split_on_its_sequence_raises_on_the_card(cuda):
+    """A decode cache split on its sequence (``act_kv_seq``) across two
+    ranks has no cross-rank combine: the card raises, and runs nothing."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import make_smoke_mesh
+    make_smoke_mesh(cuda)                # the process's one-rank group
+    mesh = DeviceMesh("cuda", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"), _init_backend=False)
+    rng = np.random.default_rng(17)
+    rep = [Replicate(), Replicate()]
+    q = DTensor.from_local(_randn(rng, (2, 4, 64), torch.bfloat16, cuda),
+                           mesh, rep, run_check=False)
+    k = DTensor.from_local(_randn(rng, (2, 64, 2, 64), torch.bfloat16, cuda),
+                           mesh, [Replicate(), Shard(1)], run_check=False)
+    lengths = torch.full((2,), 100, dtype=torch.int32, device=cuda)
+    before = da_mod.launches
+    with pytest.raises(NotImplementedError):
+        da_mod.decode_attention(q, k, k, lengths)
+    assert da_mod.launches == before

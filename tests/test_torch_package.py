@@ -86,7 +86,9 @@ def test_port_import_leaves_jax_unloaded():
             " repro_torch.models.graph_adapter, repro_torch.launch.steps,"
             " repro_torch.launch.serve, repro_torch.serving.engine,"
             " repro_torch.optim, repro_torch.data, repro_torch.checkpoint,"
-            " repro_torch.launch.train;"
+            " repro_torch.launch.train, repro_torch.runtime.sharding,"
+            " repro_torch.kernels.sharded, repro_torch.launch.mesh,"
+            " repro_torch.launch.dryrun, repro_torch.launch.roofline;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')];"
             " print(bad); sys.exit(1 if bad else 0)")
