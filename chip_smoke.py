@@ -132,20 +132,29 @@ must lower its loss and launch ``ssd_scan``'s wide route and its plain
 backward; a fresh model then resumes from the step-20 checkpoint through
 ``TrainSupervisor`` for ``RESUME_STEPS`` steps, its state equal to the
 saved one bit for bit and its losses within ``RESUME_TOL`` of the
-uninterrupted run's.  zamba2-2.7b as registered (remat, the loss in chunks
-of 1024) takes one loss and gradient with the kernels, with the plain
-versions in both directions, with the kernels' gradients cut and with the
-plain versions in fp32 (loss within ``LM_TOL``; the gradient tree within
-``TRAIN_GRAD_TOL``, which the cut run must exceed; each leaf only the
-kernels' gradients reach within ``TRAIN_LEAF_TOL``), then ``TRAIN_ZAMBA``
-steps at 2 × 2048 tokens that must launch both kernels and their plain
-backward.  Each model's step time (forward and loss, backward, AdamW; CUDA
-events), tokens/s, 6·N·tokens rate, peak memory and launches by direction
-are printed beside the card's name and power limit.  Last, at the path's
-shapes with launches counted from 0, each kernel's forward is held against
-the plain version (``TOL``), each Function's gradients against plain
-autograd's (``FN_GRAD_TOL``), and one plain backward is timed; the kernel
-rows carry the phase's launches as ``launches_train``.
+uninterrupted run's.  Then four families as registered (remat, the loss
+in chunks of 1024) at published widths (``train_family``): zamba2-2.7b
+(``TRAIN_ZAMBA``: 2 × 2048 tokens), qwen2-moe-a2.7b cut to 4 of its 24
+layers (``TRAIN_MOE``), whisper-medium whole (``TRAIN_WHISPER``: 4 × 448
+tokens over 1500 frames) and internvl2-76b cut to 2 of its 80 layers
+(``TRAIN_INTERNVL``: 256 patch embeddings and 1024 tokens).  Each takes
+one loss and gradient with the kernels, with the plain versions in both
+directions, with the kernels' gradients cut and with the plain versions
+in fp32 (the MoE's last three routed as the kernel run; loss within
+``LM_TOL``; the gradient tree within ``TRAIN_GRAD_TOL``, which the cut run
+must exceed; each leaf only the kernels' gradients reach within
+``TRAIN_LEAF_TOL``), then 3 steps that must launch its kernels and their
+plain backward (flash counted by route: causal, the encoder's non-causal
+self-attention, whisper's cross-attention), with finite losses and the
+MoE's aux loss finite and above 0.  Each model's step time (forward and
+loss, backward, AdamW; CUDA events), tokens/s, 6·N·tokens rate, peak
+memory and launches by direction are printed beside the card's name and
+power limit.  Last, at the path's shapes with launches counted from 0,
+each kernel's forward is held against the plain version (``TOL``), each
+Function's gradients against plain autograd's (``FN_GRAD_TOL``), and one
+plain backward is timed (flash also at whisper's cross-attention, whose
+row ``flash_attention_cross_whisper`` is added); the kernel rows carry the
+phase's launches as ``launches_train``, flash's by family.
 
 The ``mesh`` phase follows ``train``: the launch slice.  First the dry-run
 on the card's host (``launch/dryrun.py``: ``meta`` DTensors over a fake
@@ -164,7 +173,16 @@ unsharded on the same weights.  Losses, parameters and logits must be equal
 bit for bit and the tokens equal, and flash_attention, ssd_scan and
 decode_attention must launch inside the mesh (counted from 0); each step's
 time is printed beside the unsharded one's (DTensor's host cost).  The
-kernel rows carry those launches as ``launches_mesh``.
+kernel rows carry those launches as ``launches_mesh``.  Last, the split
+decode that a mesh runs on a cache split on its sequence, on the one
+card: granite-8b × decode_32k's rows of one rank (4 rows, 32,768-entry
+caches cut into 16 slices of 2048) and gemma2-9b's local layer (window
+4096, its lower edges inside slices), each slice through the kernel with
+its lengths, ``starts`` and log-sum-exp, recombined by
+``ref.combine_partials`` and held against the unsplit kernel and the plain
+version (``check_decode``), the 16 slice calls timed beside one unsplit
+call; the row ``decode_attention_lse_slice_granite`` times the kernel on
+one slice with its log-sum-exp.
 
 The ``analysis`` phase runs ``python -m repro_torch.analysis --strict`` over
 every target with the card's shared-memory limit (the kernels' candidate
@@ -2160,6 +2178,16 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
 TRAIN_XLSTM = dict(steps=40, batch=8, seq=512, ckpt_every=20, peak_lr=3e-3,
                    warmup=20, weight_decay=0.01)
 TRAIN_ZAMBA = dict(steps=3, batch=2, seq=2048)
+# the other families, widths as published, depth cut where a card cannot
+# hold the AdamW state (12 B a parameter) beside the weights and the rest:
+# qwen2-moe-a2.7b 4 of 24 layers (2.732e9 parameters, 32.8 GB of state;
+# 178 GB at full depth), whisper-medium whole (0.758e9) at its 1500 frames
+# and 448-token decoder context, internvl2-76b's backbone 2 of 80 layers
+# (2.762e9; 4 layers would need 53.7 GB of state) over 256 patch embeddings
+# and 1024 text tokens
+TRAIN_MOE = dict(steps=3, batch=2, seq=2048, layers=4)
+TRAIN_WHISPER = dict(steps=3, batch=4, seq=448)
+TRAIN_INTERNVL = dict(steps=3, batch=2, seq=1024, layers=2)
 # the resumed run's losses against the uninterrupted run's, relative:
 # decided before the first run on the card; the restored state is already
 # held bit for bit, so a few resumed steps show the run goes on as before
@@ -2178,6 +2206,12 @@ FN_GRAD_TOL = 1e-3
 # same in fp32, so the sound reading is bf16's own rounding
 TRAIN_GRAD_TOL = 0.3
 TRAIN_LEAF_TOL = 0.4
+# a leaf whose gradient is zero in exact arithmetic (an attention's k bias,
+# which the softmax does not see: whisper-medium's and qwen2-moe-a2.7b's)
+# holds rounding noise in every run; its distance is taken relative to at
+# least this fraction of the whole tree's norm, as
+# tests/test_torch_train_loss.py's ZERO_FLOOR takes it
+LEAF_FLOOR = 1e-4
 
 
 def zero_launches() -> None:
@@ -2209,7 +2243,7 @@ def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
     model.loss = fwd.wrap(model.loss)
     steps_mod.apply_updates = upd.wrap(real_apply)
     timed = total.wrap(step_fn)
-    losses = []
+    losses, aux = [], []
     torch.cuda.reset_peak_memory_stats()
     try:
         for step in range(start, stop):
@@ -2220,6 +2254,7 @@ def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
             t0 = time.perf_counter()
             params, opt, metrics = timed(params, opt, batch)
             losses.append(metrics["loss"])
+            aux.append(metrics["aux"])
             if sup is not None:
                 sup.after_step(step + 1, {"p": params, "o": opt},
                                time.perf_counter() - t0)
@@ -2232,7 +2267,7 @@ def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
         steps_mod.apply_updates = real_apply
     step_ms, fwd_ms, opt_ms = total.ms(), fwd.ms(), upd.ms()
     return params, opt, dict(
-        losses=[float(v) for v in losses],
+        losses=[float(v) for v in losses], aux=[float(v) for v in aux],
         step_ms=statistics.median(step_ms), fwd_ms=statistics.median(fwd_ms),
         opt_ms=statistics.median(opt_ms),
         bwd_ms=statistics.median(t - f - o for t, f, o in
@@ -2379,63 +2414,89 @@ def _cut_gradients():
 
 def grad_gap(got, want) -> tuple[float, dict]:
     """Relative L2 of the gradient tree ``got`` against ``want``, and each
-    leaf's own by path (a zero ``want`` leaf is left out)."""
+    leaf's own by path (a zero ``want`` leaf is left out), relative to at
+    least ``LEAF_FLOOR`` of the whole tree's norm."""
     from repro_torch.models import layers as L
-    num = den = 0.0
-    leaves = {}
+    parts = []
     for (path, g), w in zip(_paths(got), L.tree_leaves(want)):
-        e = (g.float() - w.float()).square().sum().item()
-        n = w.float().square().sum().item()
-        num, den = num + e, den + n
-        if n > 0:
-            leaves[path] = (e / n) ** 0.5
+        parts.append((path, (g.float() - w.float()).square().sum().item(),
+                      w.float().square().sum().item()))
+    num, den = sum(p[1] for p in parts), sum(p[2] for p in parts)
+    floor = LEAF_FLOOR ** 2 * den
+    leaves = {path: (e / max(n, floor)) ** 0.5 for path, e, n in parts
+              if n > 0}
     return (num / den) ** 0.5, leaves
 
 
-def train_zamba(dev, card, peak_flops) -> dict:
-    """zamba2-2.7b at full size.  One loss and gradient on step 0's batch
-    four ways: with the kernels, with their plain versions in both
-    directions, with the kernels' gradients cut (the fault the autograd
-    Functions repair) and with the plain versions in fp32 on the same
-    weights (bf16's own noise).  Raises unless the kernel run's loss lies
-    within ``LM_TOL`` of the plain run's, its gradient tree within
-    ``TRAIN_GRAD_TOL`` and each leaf that only the kernels' gradients reach
-    within ``TRAIN_LEAF_TOL``, while the cut run's tree lies outside
-    ``TRAIN_GRAD_TOL``.  Then ``TRAIN_ZAMBA["steps"]`` train steps that must
-    launch flash_attention and ssd_scan and run their plain backward."""
+def train_family(dev, card, peak_flops, label, t, kernels, cfg=None,
+                 routes=None) -> dict:
+    """``label``'s model at published widths (``cfg`` cuts its depth).
+    One loss and gradient on step 0's batch four ways: with the kernels,
+    with their plain versions in both directions, with the kernels'
+    gradients cut (the fault the autograd Functions repair) and with the
+    plain versions in fp32 on the same weights (bf16's own noise); an MoE
+    routes the last three as the kernel run routed (``_routes``), so that
+    no top-k choice flips whole expert leaves between them.  Raises unless
+    the kernel run's loss lies within ``LM_TOL`` of the plain run's, its
+    gradient tree within ``TRAIN_GRAD_TOL`` and each leaf that only the
+    kernels' gradients reach within ``TRAIN_LEAF_TOL``, while the cut
+    run's tree lies outside ``TRAIN_GRAD_TOL``.  Then ``t["steps"]`` train
+    steps that must launch each of ``kernels`` and run its plain backward,
+    with finite losses (and an MoE's aux finite and above 0).  ``routes``
+    (module, name, key_of) triples count the steps' flash launches by
+    route (``_route_counter``).  Returns the launches, the routes' counts
+    and the numbers."""
+    import contextlib
+
+    import torch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.launch.train import device_batch
     from repro_torch.models import layers as L
     from repro_torch.optim import AdamWConfig, init_state
 
-    t = TRAIN_ZAMBA
-    label = "zamba2-2.7b"
-    model, params = lm_model(label, dev)
-    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=t["seq"],
-                                  global_batch=t["batch"], seed=SEED))
-    batch = device_batch(model.cfg, data.global_batch_at(0), dev)
-    loss_k, _, grads_k = value_and_grad(model.loss, params, batch)
-    with _plain_kernels():
+    model, params = lm_model(label, dev, cfg)
+    c = model.cfg
+    data = SyntheticLM(DataConfig(
+        vocab=c.vocab, seq_len=t["seq"], global_batch=t["batch"], seed=SEED,
+        encoder_len=c.encoder_len if c.is_encdec else 0,
+        n_img_tokens=c.n_img_tokens, d_model=c.d_model))
+    batch = device_batch(c, data.global_batch_at(0), dev)
+    log = {"routes": []}
+
+    def routed(first=False):
+        if not c.moe_experts:
+            return contextlib.nullcontext()
+        return _routes(log) if first else _routes({"routes": []},
+                                                    forced=log)
+
+    with routed(first=True):
+        loss_k, _, grads_k = value_and_grad(model.loss, params, batch)
+    with _plain_kernels(), routed():
         loss_p, _, grads_p = value_and_grad(model.loss, params, batch)
-    with _cut_gradients():
+    with _cut_gradients(), routed():
         _, _, grads_c = value_and_grad(model.loss, params, batch)
     # the leaves only the kernels' gradients reach: zero when they are cut
-    fed = [path for (path, c), p in zip(_paths(grads_c),
+    fed = [path for (path, g), p in zip(_paths(grads_c),
                                         L.tree_leaves(grads_p))
-           if not c.any() and p.any()]
+           if not g.any() and p.any()]
     sound, sound_leaf = grad_gap(grads_k, grads_p)
     fault, fault_leaf = grad_gap(grads_c, grads_p)
     del grads_c
     wide = L.tree_map(lambda a: a.float(), params)
-    with _plain_kernels():
+    with _plain_kernels(), routed():
         _, _, grads_f = value_and_grad(model.loss, wide, batch)
     del wide
     noise, noise_leaf = grad_gap(grads_p, grads_f)
     kernel_f, _ = grad_gap(grads_k, grads_f)
     del grads_k, grads_p, grads_f
+    gc.collect()
+    torch.cuda.empty_cache()
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     worst = max(sound_leaf, key=sound_leaf.get)
+    forced = (f"; the plain, cut and fp32 runs routed as the kernel run's "
+              f"{sum(r.numel() for r in log['routes'])} top-{c.moe_top_k} "
+              f"choices" if c.moe_experts else "")
     print(f"[{card}] train {label} vs the plain versions (no kernel in "
           f"either direction), step 0's batch: loss {loss_k.item():.5f} vs "
           f"{loss_p.item():.5f}, relative {loss_rel:.3g} (bound {LM_TOL}); "
@@ -2444,7 +2505,7 @@ def train_zamba(dev, card, peak_flops) -> dict:
           f"exceed {TRAIN_GRAD_TOL}); against the plain versions in fp32: "
           f"plain bf16 {noise:.4g}, kernels {kernel_f:.4g} (not checked); "
           f"worst leaf {worst} {sound_leaf[worst]:.4g} (plain bf16 vs fp32 "
-          f"{noise_leaf.get(worst, 0.0):.4g})")
+          f"{noise_leaf.get(worst, 0.0):.4g}){forced}")
     print(f"[{card}] train {label}: {len(fed)} leaves only the kernels' "
           f"gradients reach (bound {TRAIN_LEAF_TOL} each), kernels / cut / "
           f"plain bf16 vs fp32: " + ", ".join(
@@ -2472,24 +2533,40 @@ def train_zamba(dev, card, peak_flops) -> dict:
                            f"{TRAIN_LEAF_TOL}: {over}")
 
     opt = init_state(params)
+    counts = Counter()
+    saved = [(module, name, _route_counter(module, name, counts, key_of))
+             for module, name, key_of in routes or ()]
     zero_launches()
-    params, opt, run = train_steps(model, make_train_step(model,
-                                                          AdamWConfig()),
-                                   params, opt, data, 0, t["steps"])
+    try:
+        params, opt, run = train_steps(
+            model, make_train_step(model, AdamWConfig()), params, opt, data,
+            0, t["steps"])
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
     launches = kernel_launches()
-    report_training(card, label, model.cfg, run, t["batch"], t["seq"],
-                    peak_flops, launches)
+    report_training(card, label, c, run, t["batch"], t["seq"], peak_flops,
+                    launches)
     print(f"[{card}] train {label}: losses "
-          + ", ".join(f"{v:.5f}" for v in run["losses"]))
-    for k in ("flash_attention", "flash_attention backward (plain)",
-              "ssd_scan", "ssd_scan backward (plain)"):
-        if launches[k] <= 0:
-            raise RuntimeError(f"train {label}: no {k} launch in the steps")
+          + ", ".join(f"{v:.5f}" for v in run["losses"])
+          + (f"; aux " + ", ".join(f"{v:.5f}" for v in run["aux"])
+             if c.moe_experts else "")
+          + (f"; flash launches by route {dict(counts)}" if routes else ""))
+    for k in kernels:
+        for key in (k, f"{k} backward (plain)"):
+            if launches[key] <= 0:
+                raise RuntimeError(f"train {label}: no {key} launch in the "
+                                   "steps")
     if not all(math.isfinite(v) for v in run["losses"]):
         raise RuntimeError(f"train {label}: a loss is not finite")
+    if c.moe_experts and not all(math.isfinite(v) and v > 0
+                                 for v in run["aux"]):
+        raise RuntimeError(f"train {label}: the router's aux loss is not "
+                           f"finite and above 0: {run['aux']}")
     del model, params, opt
-    return dict(launches=launches, run=run, loss_rel=loss_rel,
-                grad_rel=sound, grad_cut=fault, grad_noise=noise)
+    return dict(launches=launches, routes=dict(counts), run=run,
+                loss_rel=loss_rel, grad_rel=sound, grad_cut=fault,
+                grad_noise=noise)
 
 
 def _paths(tree, prefix=""):
@@ -2514,6 +2591,7 @@ def train_kernel_checks(dev) -> dict:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models import get_config
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
 
@@ -2542,22 +2620,36 @@ def train_kernel_checks(dev) -> dict:
 
     zc, xc = TRAIN_ZAMBA, TRAIN_XLSTM
     out = {}
-    zero_launches()
-    q, k, v = (randn(zc["batch"], zc["seq"], 32, 80) for _ in range(3))
-    o = fa_mod.flash_attention(q, k, v, causal=True)
-    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
-    err = check_close("flash_attention (train path) vs plain", o, o_ref)
-    go = randn(*o.shape).detach()
-    gaps = grad_gaps("flash_attention", o, o_ref, (q, k, v), "qkv", go)
-    del o_ref
-    out["flash_attention"] = dict(
-        shapes=f"q = k = v {tuple(q.shape)} bf16 causal (zamba2-2.7b's "
-               "shared attention)", err=err, gaps=gaps,
-        launches=counted("flash_attention", "flash_attention",
-                         "flash_attention backward (plain)"),
-        ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
-                                               retain_graph=True), runs=5))
-    del q, k, v, o, go
+
+    def flash_case(name, q_shape, kv_shape, causal, note):
+        zero_launches()
+        q, k, v = randn(*q_shape), randn(*kv_shape), randn(*kv_shape)
+        o = fa_mod.flash_attention(q, k, v, causal=causal)
+        o_ref = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = check_close(f"{name} (train path) vs plain", o, o_ref)
+        go = randn(*o.shape).detach()
+        gaps = grad_gaps(name, o, o_ref, (q, k, v), "qkv", go)
+        del o_ref
+        out[name] = dict(
+            shapes=f"q {tuple(q.shape)}, k, v {tuple(k.shape)} bf16 "
+                   f"{'causal' if causal else 'non-causal'} ({note})",
+            err=err, gaps=gaps,
+            launches=counted(name, "flash_attention",
+                             "flash_attention backward (plain)"),
+            ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
+                                                   retain_graph=True),
+                       runs=5))
+
+    shape = (zc["batch"], zc["seq"], 32, 80)
+    flash_case("flash_attention", shape, shape, True,
+               "zamba2-2.7b's shared attention")
+    # whisper-medium's cross-attention: the decoder's 448 queries over the
+    # encoder's 1500 frames, no mask
+    wc, w = get_config("whisper-medium"), TRAIN_WHISPER
+    flash_case("flash_attention_cross_whisper",
+               (w["batch"], w["seq"], wc.n_heads, wc.head_dim),
+               (w["batch"], wc.encoder_len, wc.n_heads, wc.head_dim), False,
+               "whisper-medium's cross-attention")
 
     def ssd_case(name, x, la, b, c, shared, note, *wide):
         zero_launches()
@@ -2604,17 +2696,85 @@ def train_kernel_checks(dev) -> dict:
     return out
 
 
-def train_phase(dev, card, peak_flops, out_dir) -> dict:
-    """Training at full size on the card: xlstm-125m (40 steps, checkpoint
-    and resume), zamba2-2.7b (held against the plain versions, 3 steps),
-    then one plain backward of each kernel timed at the path's shapes.
-    Returns, by kernel row name, the phase's launches by direction and the
-    plain backward's time."""
+def flash_cross_row(dev, launches, backward_ms) -> dict:
+    """flash_attention without a mask at whisper-medium's cross-attention in
+    training: q (4, 448, 16, 64) over k, v (4, 1500, 16, 64) bf16, against
+    its plain version, timed beside it and non-causal
+    ``scaled_dot_product_attention``; ``launches`` are the whisper train
+    steps' cross-attention ones, ``backward_ms`` one plain backward's time
+    at this shape (``train_kernel_checks``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models import get_config
+
+    c, w = get_config("whisper-medium"), TRAIN_WHISPER
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    q_shape = (w["batch"], w["seq"], c.n_heads, c.head_dim)
+    kv_shape = (w["batch"], c.encoder_len, c.n_heads, c.head_dim)
+    q, k, v = (torch.randn(s_, generator=gen, device=dev).to(torch.bfloat16)
+               for s_ in (q_shape, kv_shape, kv_shape))
+    got = fa_mod.flash_attention(q, k, v, causal=False)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    err = check_close("flash_attention_cross_whisper vs plain", got,
+                      ref.flash_attention_ref(qf, kf, vf, causal=False))
+
+    def call():
+        return fa_mod.flash_attention(q, k, v, causal=False)
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(qf, kf, vf,
+                                                       causal=False), runs=10)
+    del qf, kf, vf
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    check_close("flash_attention_cross_whisper: SDPA vs the kernel",
+                F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2),
+                got)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    B_, Sq, H_, hd = q_shape
+    sass = fa_mod.mma_instances(_build.sass_opcodes("flash_attention"))
+    ptxas = fa_mod.mma_instances(_build.ptxas_report("flash_attention"))
+    return dict(
+        name="flash_attention_cross_whisper", tpu="flash_attention.py:122",
+        design="mma.sync bf16, no mask, Sq != Sk",
+        build=mma_build("flash_attention_cross_whisper", ptxas[hd], sass[hd]),
+        shapes=f"q {q_shape}, k, v {kv_shape} bf16, causal=False "
+               "(whisper-medium's cross-attention in training); library: "
+               f"scaled_dot_product_attention, no mask; one plain backward "
+               f"{backward_ms:.3f} ms",
+        err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
+        host_ms=host, plain_ms=plain_ms,
+        flops=4.0 * B_ * H_ * hd * Sq * kv_shape[1],
+        nbytes=moved_bytes(q, k, v, got), lib_ms=lib_ms, launches=launches)
+
+
+def _flash_routes():
+    """The flash entry points the models call, as ``train_family`` counts
+    them: the layers' (causal, or the encoder's non-causal self-attention)
+    and the enc-dec's cross-attention."""
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    return [(L, "flash_attention",
+             lambda a, k: "flash causal" if k.get("causal", True)
+             else "flash non-causal"),
+            (encdec, "flash_attention", lambda a, k: "flash cross")]
+
+
+def train_phase(dev, card, peak_flops, out_dir) -> tuple[dict, list]:
+    """Training at full width on the card: xlstm-125m (40 steps, checkpoint
+    and resume), zamba2-2.7b, qwen2-moe-a2.7b, whisper-medium and
+    internvl2-76b (each held against the plain versions, 3 steps), then one
+    plain backward of each kernel timed at the path's shapes.  Returns, by
+    kernel row name, the phase's launches by direction and family and the
+    plain backward's time; and the row of flash at whisper's
+    cross-attention."""
     import shutil
     import tempfile
     import time
 
     import torch
+    from repro_torch.models import get_config
 
     t0 = time.perf_counter()
     root = out_dir or tempfile.gettempdir()
@@ -2627,12 +2787,30 @@ def train_phase(dev, card, peak_flops, out_dir) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"train xlstm-125m: {time.perf_counter() - t0:.1f} s of wall time")
-    t1 = time.perf_counter()
-    zb = train_zamba(dev, card, peak_flops)
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"train zamba2-2.7b: {time.perf_counter() - t1:.1f} s of wall "
-          "time")
+    families = {}
+    for label, t, cut in (("zamba2-2.7b", TRAIN_ZAMBA, None),
+                          ("qwen2-moe-a2.7b", TRAIN_MOE, "layers"),
+                          ("whisper-medium", TRAIN_WHISPER, None),
+                          ("internvl2-76b", TRAIN_INTERNVL, "layers")):
+        t1 = time.perf_counter()
+        full = get_config(label)
+        cfg = full.replace(n_layers=t[cut]) if cut else None
+        if cut:
+            print(f"train {label} reduced: depth {t[cut]} of {full.n_layers} "
+                  "layers (the AdamW state of one card); widths as published")
+        kernels = ("flash_attention", "ssd_scan") \
+            if label == "zamba2-2.7b" else ("flash_attention",)
+        families[label] = train_family(
+            dev, card, peak_flops, label, t, kernels, cfg=cfg,
+            routes=None if label == "zamba2-2.7b" else _flash_routes())
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train {label}: {time.perf_counter() - t1:.1f} s of wall time")
+    wh = families["whisper-medium"]["routes"]
+    if not (wh.get("flash non-causal", 0) > 0 and wh.get("flash cross", 0) > 0
+            and wh.get("flash causal", 0) > 0):
+        raise RuntimeError(f"train whisper-medium: a flash route did not "
+                           f"launch: {wh}")
     bwd = train_kernel_checks(dev)
     for name, row in bwd.items():
         print(f"[{card}] {name} at {row['shapes']}: forward max abs err "
@@ -2643,14 +2821,35 @@ def train_phase(dev, card, peak_flops, out_dir) -> dict:
               f"plain backward {row['ms']:.3f} ms (CUDA-event median of 5)")
     gc.collect()
     torch.cuda.empty_cache()
+    rows = [flash_cross_row(dev, wh["flash cross"],
+                            bwd["flash_attention_cross_whisper"]["ms"])]
     print(f"train phase: {time.perf_counter() - t0:.1f} s of wall time")
-    xlz, zbz = xl["launches"], zb["launches"]
+    xlz, zbz = xl["launches"], families["zamba2-2.7b"]["launches"]
+    by_family = {label: dict(forward=f["launches"]["flash_attention"],
+                             backward_plain=f["launches"][
+                                 "flash_attention backward (plain)"],
+                             **({"routes": f["routes"]} if f["routes"]
+                                else {}))
+                 for label, f in families.items()}
     return {
         "flash_attention": dict(
-            forward=zbz["flash_attention"],
-            backward_plain=zbz["flash_attention backward (plain)"],
+            forward=sum(f["forward"] for f in by_family.values()),
+            backward_plain=sum(f["backward_plain"]
+                               for f in by_family.values()),
+            by_family=by_family,
             plain_backward_ms=bwd["flash_attention"]["ms"],
-            of=f"zamba2-2.7b's {TRAIN_ZAMBA['steps']} steps"),
+            of="3 steps each of zamba2-2.7b, qwen2-moe-a2.7b, "
+               "whisper-medium and internvl2-76b"),
+        "flash_attention_noncausal_whisper": dict(
+            forward=wh["flash non-causal"],
+            of="whisper-medium's 3 steps, the encoder's self-attention"),
+        "flash_attention_cross_whisper": dict(
+            forward=wh["flash cross"],
+            backward_plain=families["whisper-medium"]["launches"][
+                "flash_attention backward (plain)"],
+            plain_backward_ms=bwd["flash_attention_cross_whisper"]["ms"],
+            of="whisper-medium's 3 steps, the cross-attention (backward: "
+               "every route of the steps)"),
         "ssd_scan": dict(
             forward=zbz["ssd_scan"],
             backward_plain=zbz["ssd_scan backward (plain)"],
@@ -2664,7 +2863,7 @@ def train_phase(dev, card, peak_flops, out_dir) -> dict:
                "ones not counted)"),
         "decode_attention": dict(forward=0, backward_plain=0,
                                  of="training never decodes"),
-    }
+    }, rows
 
 
 # the dry-run's cells: (arch, shape, multi_pod)
@@ -2895,11 +3094,193 @@ def mesh_granite(dev, card, mesh) -> dict:
                 decode_ms=mesh_run["decode_ms"])
 
 
-def mesh_phase(dev, card, out_dir) -> dict:
+# the split-decode check: granite-8b x decode_32k's rows of one rank on the
+# 2 x 16 x 16 mesh (128 sequences over pod x data: 4 rows; 32,768-entry
+# caches cut over the 16 model ranks into slices of 2048), and gemma2-9b's
+# local layer at the same cut, its window's lower edge inside a slice
+SPLIT = dict(batch=4, max_len=32768, shards=16)
+SPLIT_LENGTHS = {"granite-8b": [32768, 30000, 16384, 2049],
+                 "gemma2-9b": [30000, 17000, 9000, 4096]}
+
+
+def split_decode_case(dev, card, arch) -> dict:
+    """``arch``'s attention over a cache cut into ``SPLIT["shards"]``
+    slices of its sequence, as each rank of a mesh holds it: the kernel on
+    each slice with the slice's lengths and starts (``sharded
+    .slice_bounds``) and its log-sum-exp, then ``combine_partials`` on the
+    stacked partials (one card: the combine the ranks' collectives make,
+    here on stacked tensors).  Held against the unsplit kernel and the
+    plain version (``check_decode``), and the slices' lse against the plain
+    version's; the slice calls' launches counted from 0.  Returns the
+    numbers and the inputs of the heaviest slice."""
+    import torch
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sharded import slice_bounds
+    from repro_torch.models import get_config
+
+    c, sp = get_config(arch), SPLIT
+    window = c.window
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    B, Smax, R = sp["batch"], sp["max_len"], sp["shards"]
+    q = torch.randn((B, c.n_heads, c.head_dim), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, Smax, c.n_kv_heads, c.head_dim), generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(SPLIT_LENGTHS[arch], dtype=torch.int32, device=dev)
+    Sl = Smax // R
+    bounds = [slice_bounds(lens, r * Sl, Sl, window) for r in range(R)]
+    kw = dict(softcap=c.attn_softcap)
+
+    def slices():
+        return [da_mod.decode_attention(
+            q, k[:, r * Sl:(r + 1) * Sl], v[:, r * Sl:(r + 1) * Sl], end,
+            starts=start, return_lse=True, **kw)
+            for r, (end, start) in enumerate(bounds)]
+
+    zero_launches()
+    parts = slices()
+    launches = kernel_launches()["decode_attention"]
+    if launches != R:
+        raise RuntimeError(f"split decode {arch}: {launches} launches for "
+                           f"{R} slices")
+    got = ref.combine_partials(torch.stack([o for o, _ in parts]),
+                               torch.stack([lse for _, lse in parts]))
+    whole = da_mod.decode_attention(q, k, v, lens, window=window, **kw)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.decode_attention_ref(qf, kf, vf, lens, window=window, **kw)
+    err, rel = check_decode(f"split decode {arch} vs plain", got, want, want)
+    err_k, rel_k = check_decode(f"split decode {arch} vs the unsplit kernel",
+                                got, whole, want)
+    lse_err = 0.0
+    for r, (o, lse) in enumerate(parts):
+        end, start = bounds[r]
+        _, lse_want = ref.decode_attention_ref(
+            qf, kf[:, r * Sl:(r + 1) * Sl], vf[:, r * Sl:(r + 1) * Sl], end,
+            starts=start, return_lse=True, **kw)
+        empty = torch.isneginf(lse_want)
+        if not torch.equal(torch.isneginf(lse), empty):
+            raise RuntimeError(f"split decode {arch}: slice {r}'s empty rows "
+                               "differ from the plain version's")
+        if (~empty).any():
+            lse_err = max(lse_err, check_close(
+                f"split decode {arch} slice {r} lse vs plain", lse[~empty],
+                lse_want[~empty], atol=1e-3, rtol=1e-3))
+    del kf, vf
+
+    def split_call():
+        ps = slices()
+        return ref.combine_partials(torch.stack([o for o, _ in ps]),
+                                    torch.stack([lse for _, lse in ps]))
+    split_ms = time_ms(split_call)
+    slices_ms = time_ms(slices)
+    whole_ms = time_ms(lambda: da_mod.decode_attention(
+        q, k, v, lens, window=window, **kw))
+    heavy = max(range(R), key=lambda r: int(bounds[r][0].sum()
+                                            - bounds[r][1].sum()))
+    print(f"[{card}] split decode {arch}: q {tuple(q.shape)}, k, v "
+          f"{tuple(k.shape)} bf16 cut into {R} slices of {Sl}, lengths "
+          f"{SPLIT_LENGTHS[arch]}, window {window}, softcap {c.attn_softcap}; "
+          f"combined vs plain max abs err {err:.4g} (relative norm "
+          f"{rel:.4g}), vs the unsplit kernel {err_k:.4g} ({rel_k:.4g}); "
+          f"bounds {DEC_ATOL} x RMS abs + {DEC_RTOL} rel, norm {DEC_NORM}; "
+          f"slices' lse vs plain max abs err {lse_err:.4g} (1e-3); "
+          f"{R} slice calls {slices_ms:.4f} ms, with combine_partials "
+          f"{split_ms:.4f} ms, one unsplit call {whole_ms:.4f} ms "
+          f"(CUDA-event medians); {launches} launches")
+    return dict(launches=launches, err=err, rel=rel, err_kernel=err_k,
+                split_ms=split_ms, slices_ms=slices_ms, whole_ms=whole_ms,
+                lse_err=lse_err, q=q, k=k[:, heavy * Sl:(heavy + 1) * Sl],
+                v=v[:, heavy * Sl:(heavy + 1) * Sl], bounds=bounds[heavy],
+                slice=heavy, softcap=c.attn_softcap)
+
+
+def split_decode_row(dev, case) -> dict:
+    """The decode kernel with ``starts`` and ``return_lse`` at one slice of
+    the granite-8b case (the one with the most valid keys): held against
+    its plain version, timed beside it and beside PyTorch's memory-efficient
+    attention asked for its log-sum-exp (the same two outputs); launches:
+    the check's slice calls."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import ref
+
+    q, k, v, (end, start) = case["q"], case["k"], case["v"], case["bounds"]
+    B, H, hd = q.shape
+    Sl, Hk = k.shape[1], k.shape[2]
+
+    def call():
+        return da_mod.decode_attention(q, k, v, end, starts=start,
+                                       return_lse=True)
+    got, lse = call()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want, _ = ref.decode_attention_ref(qf, kf, vf, end, starts=start,
+                                       return_lse=True)
+    err, rel = check_decode("decode_attention_lse_slice_granite vs plain",
+                            got, want, want)
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(
+        qf, kf, vf, end, starts=start, return_lse=True), runs=10)
+    del kf, vf
+    kpos = torch.arange(Sl, device=q.device)
+    mask = (kpos[None, :] < end[:, None]) & (kpos[None, :] >= start[:, None])
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // Hk, dim=1)
+              .contiguous() for t in (k, v))
+    bias = torch.zeros((B, H, 1, Sl), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(~mask[:, None, None, :], float("-inf"))
+    qv = q.view(B, H, 1, hd)
+
+    def lib():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qv, kt, vt, bias, True)
+    lib_ms, lib_note = None, ""
+    try:
+        out = lib()
+        check_decode("decode_attention_lse_slice_granite: efficient "
+                     "attention vs plain", out[0].reshape(q.shape), want, want)
+        lib_ms = time_ms(lib)
+        lib_note = ("PyTorch's memory-efficient attention with the mask as a "
+                    "bias, compute_log_sumexp=True")
+    except (RuntimeError, TypeError) as e:     # no such kernel here
+        lib_note = f"none ran ({type(e).__name__}: {str(e)[:120]})"
+    rows = int(mask.sum())
+    build = mma_build("decode_attention_lse_slice_granite",
+                      [da_mod.mma_instances(
+                          _build.ptxas_report("decode_attention"))[hd]],
+                      [da_mod.mma_instances(
+                          _build.sass_opcodes("decode_attention"))[hd]])
+    plan = da_mod.split_plan(q, k)
+    return dict(
+        name="decode_attention_lse_slice_granite",
+        tpu="decode_attention.py:100",
+        design="mma.sync bf16, split-KV, one wave; per-row starts and the "
+               "log-sum-exp",
+        build=dict(**build, nsplit=plan["nsplit"],
+                   ctas_per_sm=plan["ctas_per_sm"],
+                   smem_bytes=plan["smem_bytes"]),
+        shapes=f"q {tuple(q.shape)} bf16, k, v {tuple(k.shape)} bf16 (slice "
+               f"{case['slice']} of {SPLIT['shards']} of granite-8b x "
+               f"decode_32k's 32,768-entry caches), lengths {end.tolist()}, "
+               f"starts {start.tolist()}, lse (B, H) fp32; relative norm err "
+               f"{rel:.4g}; library: {lib_note}",
+        err=err, tol=f"tol {DEC_ATOL} x RMS abs + {DEC_RTOL} rel, norm "
+                     f"{DEC_NORM}",
+        ms=ms, call_ms=call_ms, host_ms=host, plain_ms=plain_ms,
+        flops=4.0 * H * hd * rows,
+        nbytes=moved_bytes(q, got, lse, end, start) + 2.0 * rows * Hk * hd * 2,
+        lib_ms=lib_ms, launches=case["launches"],
+        launches_of="the split-decode check's slice calls (granite-8b)")
+
+
+def mesh_phase(dev, card, out_dir) -> tuple[dict, list]:
     """The launch slice: the dry-run's cells on the host, then zamba2-2.7b
     trained and granite-8b served through the sharded steps on a 1 x 1
-    ``DeviceMesh`` of the card (NCCL), each against its unsharded steps.
-    Returns each kernel's launches in the mesh, by path."""
+    ``DeviceMesh`` of the card (NCCL), each against its unsharded steps;
+    then the split-decode check (``split_decode_case``) at granite-8b's
+    and gemma2-9b's widths.  Returns each kernel's launches in the mesh, by
+    path, and the row of the decode kernel with its log-sum-exp."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_smoke_mesh
@@ -2922,6 +3303,14 @@ def mesh_phase(dev, card, out_dir) -> dict:
         dist.destroy_process_group()
         gc.collect()
         torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    split = {arch: split_decode_case(dev, card, arch)
+             for arch in SPLIT_LENGTHS}
+    rows = [split_decode_row(dev, split["granite-8b"])]
+    del split
+    torch.cuda.empty_cache()
+    print(f"mesh split decode: {time.perf_counter() - t1:.1f} s of wall "
+          "time")
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s of wall time")
     z, g = zb["launches"], gr["launches"]
     return {
@@ -2929,7 +3318,7 @@ def mesh_phase(dev, card, out_dir) -> dict:
                             "granite-8b serve": g["flash_attention"]},
         "ssd_scan": {"zamba2-2.7b train": z["ssd_scan"]},
         "decode_attention": {"granite-8b serve": g["decode_attention"]},
-    }
+    }, rows
 
 
 def rel_err(got, want) -> float:
@@ -3414,11 +3803,13 @@ def main() -> int:
     kernels += lm_phase(dev, resources, net, args.out, prefill_db)
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_phase(dev, smi[0], peak_flops, args.out)
+    train, train_rows = train_phase(dev, smi[0], peak_flops, args.out)
+    kernels += train_rows
     for r in kernels:
         if r["name"] in train:
             r["train"] = train[r["name"]]
-    mesh = mesh_phase(dev, smi[0], args.out)
+    mesh, mesh_rows = mesh_phase(dev, smi[0], args.out)
+    kernels += mesh_rows
     for r in kernels:
         if r["name"] in mesh:
             r["mesh"] = mesh[r["name"]]

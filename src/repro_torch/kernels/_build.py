@@ -45,9 +45,9 @@ SIGNATURES = {
                          _P],
                         "fa_error_string"),
     "decode_attention": ("da_forward",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                          _I, _I, _I, ctypes.c_float, _I, ctypes.c_longlong,
-                          _P],
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _I, _I, _I, ctypes.c_float, _I,
+                          ctypes.c_longlong, _P],
                          "da_error_string"),
     "ssd_scan": ("ssd_forward",
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,

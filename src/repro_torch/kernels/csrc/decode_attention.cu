@@ -16,6 +16,13 @@
 // Tiles wholly before the window are never read: a row's tiles start at
 // the one holding its first key inside the window.
 //
+// For a cache split on its sequence across ranks, two more options: per-row
+// key bounds (starts, nullable: keys at kpos < starts[b] are masked too, and
+// the tiles wholly before them skipped, as the window's) and a per-row
+// log-sum-exp output (lse, nullable, fp32 (B, H): M + log(den) of the
+// row's scaled, softcapped scores, -inf for a row with no valid key), which
+// is what a combine of the ranks' partial outputs needs.
+//
 // What bounds it on this card: per kv head it is two matrix-vector
 // products, 4·B·H·length·hd FLOP (~1.07 GFLOP at granite-8b widths: 16
 // sequences, 32 query heads, 8 kv heads, head_dim 128, 4096 cached tokens)
@@ -53,10 +60,12 @@
 //   of 8; a group of 3, 5, 6 or 7 is padded to the next power of two.
 //
 // With the cache split, both routes write partial (m, l, acc) in fp32 per
-// split, and a second launch, da_combine, merges the splits.  A split
+// split, and a second launch, da_combine, merges the splits and writes the
+// log-sum-exp; with nsplit = 1 the bf16 kernel writes it itself.  A split
 // wholly past a row's length writes m = -inf, l = 0, which the merge
-// skips, so a row of length 0 gives zeros.  TMA and wgmma (whose M of 64
-// is four times the largest group here) are left for later work.
+// skips, so a row of length 0 (or with no key at or past its start) gives
+// zeros.  TMA and wgmma (whose M of 64 is four times the largest group
+// here) are left for later work.
 
 #include "common.cuh"
 
@@ -131,6 +140,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The first key a row sees: past the window's lower edge and at or past
+// starts[b] (clamped into [0, len] as lengths are into [0, S]).
+__device__ __forceinline__ int first_key(int len, int window,
+                                         const int* __restrict__ starts,
+                                         int b) {
+  int lo = window > 0 ? max(len - window, 0) : 0;
+  if (starts != nullptr) lo = max(lo, min(max(starts[b], 0), len));
+  return lo;
+}
+
 // One CTA per (split, kv head x group piece, batch row).  Strides for q and
 // o are (batch, head, -); for k and v (batch, sequence, head).  The
 // workspace holds, per (batch, group piece, split), gp*hd accumulators, then
@@ -139,9 +158,10 @@ template <class T, int GP>
 __global__ void __launch_bounds__(kThreads)
     da_partial(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ lengths,
-               float* __restrict__ ws, int S, int H, int Hk, int hd,
-               Strides qs, Strides ks, Strides vs, int bk, int tiles_per_split,
-               int nsplit, float softcap, int window, float scale) {
+               const int* __restrict__ starts, float* __restrict__ ws, int S,
+               int H, int Hk, int hd, Strides qs, Strides ks, Strides vs,
+               int bk, int tiles_per_split, int nsplit, float softcap,
+               int window, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte piece
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = da_layout(bk, hd, sizeof(T), GP);
@@ -166,11 +186,12 @@ __global__ void __launch_bounds__(kThreads)
 
   // lengths outside [0, S] act as the plain version's mask does
   const int len = min(max(lengths[b], 0), S);
-  const int lo = window > 0 ? max(len - window, 0) : 0;  // first key seen
+  const int lo = first_key(len, window, starts, b);
   const int t_begin = lo / bk + split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, (len + bk - 1) / bk);
 
-  if (t_begin >= t_end) {  // nothing of this row lies in the split
+  // nothing of this row lies in the split
+  if (lo >= len || t_begin >= t_end) {
     if (threadIdx.x < GP) {
       wrec[GP * hd + threadIdx.x] = -INFINITY;
       wrec[GP * hd + GP + threadIdx.x] = 0.f;
@@ -345,13 +366,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Merges the splits of one (kv head x group piece, batch row).  A split
+// Merges the splits of one (kv head x group piece, batch row), and writes
+// each row's log-sum-exp M + log(den) to lse when it is given.  A split
 // with m = -inf holds nothing; a row whose splits all hold nothing (length
-// 0) gives zeros, never (-inf) - (-inf).
+// 0) gives zeros and lse -inf, never (-inf) - (-inf).
 template <class T, int GP>
 __global__ void __launch_bounds__(kThreads)
-    da_combine(const float* __restrict__ ws, T* __restrict__ o, int H, int Hk,
-               int hd, Strides os, int nsplit) {
+    da_combine(const float* __restrict__ ws, T* __restrict__ o,
+               float* __restrict__ lse, int H, int Hk, int hd, Strides os,
+               int nsplit) {
   const int b = blockIdx.y;
   const int G = H / Hk;
   const int pieces = (G + GP - 1) / GP;
@@ -379,6 +402,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     o[b * os.b + (h0 + g) * os.s + d] =
         from_float<T>(den == 0.f ? 0.f : num / den);
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * H + h0 + g] = den == 0.f ? -INFINITY : M + logf(den);
   }
 }
 
@@ -418,7 +443,8 @@ template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
     da_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ lengths,
-                  bf16* __restrict__ o, float* __restrict__ ws, int S, int H,
+                  const int* __restrict__ starts, bf16* __restrict__ o,
+                  float* __restrict__ lse, float* __restrict__ ws, int S, int H,
                   int Hk, Strides qs, Strides ks, Strides vs, Strides os,
                   int stages, int tiles_per_split, int nsplit, int window,
                   float scale_log2, float cap_log2, float scale_over_cap) {
@@ -446,16 +472,18 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   // lengths outside [0, S] act as the plain version's mask does
   const int len = min(max(lengths[b], 0), S);
-  const int lo = window > 0 ? max(len - window, 0) : 0;  // first key seen
+  const int lo = first_key(len, window, starts, b);
   const int t_begin = lo / kTileRows + split * tiles_per_split;
   const int t_end =
       min(t_begin + tiles_per_split, (len + kTileRows - 1) / kTileRows);
-  const int ntiles = t_end - t_begin;
+  const int ntiles = lo >= len ? 0 : t_end - t_begin;
 
   if (ntiles <= 0) {  // nothing of this row lies in the split
     if (nsplit == 1) {
       for (int idx = threadIdx.x; idx < gcount * HD; idx += kMmaThreads)
         ob[(idx / HD) * os.s + idx % HD] = __float2bfloat16(0.f);
+      if (lse != nullptr && threadIdx.x < gcount)
+        lse[(size_t)b * H + h0 + threadIdx.x] = -INFINITY;
     } else if (threadIdx.x < kGroupRows) {
       wrec[kGroupRows * HD + threadIdx.x] = -INFINITY;
       wrec[kGroupRows * HD + kGroupRows + threadIdx.x] = 0.f;
@@ -645,6 +673,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     if (nsplit == 1) {
       ob[r * os.s + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+      // M is in log2 units
+      if (lse != nullptr && d == 0)
+        lse[(size_t)b * H + h0 + r] =
+            den == 0.f ? -INFINITY : M * kLn2 + logf(den);
     } else {
       wrec[r * HD + d] = num;
       if (d == 0) {
@@ -657,7 +689,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v,
-               const void* lengths, void* o, void* ws, int B, int S, int H,
+               const void* lengths, const void* starts, void* o, void* lse,
+               void* ws, int B, int S, int H,
                int Hk, const long long* st, int bk, int tiles_per_split,
                int nsplit, float softcap, int window, size_t smem,
                cudaStream_t stream) {
@@ -672,14 +705,15 @@ int launch_mma(const void* q, const void* k, const void* v,
   da_mma_kernel<HD><<<dim3(nsplit, groups, B), kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<bf16*>(o), static_cast<float*>(ws), S, H, Hk, qs, ks, vs,
+      static_cast<const int*>(starts), static_cast<bf16*>(o),
+      static_cast<float*>(lse), static_cast<float*>(ws), S, H, Hk, qs, ks, vs,
       os, mma_stages(bk), tiles_per_split, nsplit, window, scale * kLog2e,
       softcap * kLog2e, softcap > 0.f ? scale / softcap : 0.f);
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
   da_combine<bf16, kGroupRows><<<dim3(groups, B), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<bf16*>(o), H, Hk, HD, os,
-      nsplit);
+      static_cast<const float*>(ws), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Hk, HD, os, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -713,7 +747,8 @@ inline const void* simt_kernel(int gp) {
 
 template <int GP>
 int launch_simt(const void* q, const void* k, const void* v,
-                const void* lengths, void* o, void* ws, int B, int S, int H,
+                const void* lengths, const void* starts, void* o, void* lse,
+                void* ws, int B, int S, int H,
                 int Hk, int hd, const long long* st, int bk,
                 int tiles_per_split, int nsplit, float softcap, int window,
                 size_t smem, cudaStream_t stream) {
@@ -727,13 +762,14 @@ int launch_simt(const void* q, const void* k, const void* v,
   da_partial<float, GP><<<dim3(nsplit, groups, B), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(ws), S, H, Hk, hd, qs, ks, vs, bk, tiles_per_split,
+      static_cast<const int*>(starts), static_cast<float*>(ws), S, H, Hk, hd,
+      qs, ks, vs, bk, tiles_per_split,
       nsplit, softcap, window, 1.0f / sqrtf((float)hd));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   da_combine<float, GP><<<dim3(groups, B), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<float*>(o), H, Hk, hd, os,
-      nsplit);
+      static_cast<const float*>(ws), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Hk, hd, os, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -748,7 +784,8 @@ inline size_t footprint(int dtype, int G, int hd, int bk) {
 }  // namespace
 }  // namespace repro_torch
 
-// q: (B, H, hd); k, v: (B, S, Hk, hd); lengths: (B,) int32; o: (B, H, hd).
+// q: (B, H, hd); k, v: (B, S, Hk, hd); lengths: (B,) int32; o: (B, H, hd);
+// starts: (B,) int32 or null; lse: (B, H) fp32, contiguous, or null.
 // q, k, v, o of one dtype with the last axis contiguous; k and v rows 16-byte
 // aligned.  strides: 12 element strides, (batch, head, 1) for q, (batch,
 // sequence, head) for k and v, (batch, head, 1) for o.
@@ -768,7 +805,8 @@ inline size_t footprint(int dtype, int G, int hd, int bk) {
 // caller's footprint figure and must equal this file's.  Returns a
 // cudaError_t code (0 on success).
 extern "C" int da_forward(const void* q, const void* k, const void* v,
-                          const void* lengths, void* o, void* ws, int dtype,
+                          const void* lengths, const void* starts, void* o,
+                          void* lse, void* ws, int dtype,
                           int B, int S, int H, int Hk, int hd,
                           const long long* strides, int bk,
                           int tiles_per_split, int nsplit, float softcap,
@@ -790,9 +828,9 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
     switch (hd) {
 #define DA_HD(D)                                                          \
   case D:                                                                 \
-    return launch_mma<D>(q, k, v, lengths, o, ws, B, S, H, Hk, strides,   \
-                         bk, tiles_per_split, nsplit, softcap, window, smem, \
-                         s);
+    return launch_mma<D>(q, k, v, lengths, starts, o, lse, ws, B, S, H, Hk, \
+                         strides, bk, tiles_per_split, nsplit, softcap,     \
+                         window, smem, s);
       DA_HD(32) DA_HD(64) DA_HD(80) DA_HD(128) DA_HD(256)
 #undef DA_HD
       default:
@@ -802,14 +840,14 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
   switch (group_pad(H / Hk)) {
 #define DA_GP(P)                                                            \
   case P:                                                                   \
-    return launch_simt<P>(q, k, v, lengths, o, ws, B, S, H, Hk, hd, strides, \
-                          bk, tiles_per_split, nsplit, softcap, window, smem, \
-                          s);
+    return launch_simt<P>(q, k, v, lengths, starts, o, lse, ws, B, S, H, Hk, \
+                          hd, strides, bk, tiles_per_split, nsplit, softcap, \
+                          window, smem, s);
     DA_GP(1) DA_GP(2) DA_GP(4)
 #undef DA_GP
     default:
-      return launch_simt<8>(q, k, v, lengths, o, ws, B, S, H, Hk, hd,
-                            strides, bk, tiles_per_split, nsplit, softcap,
+      return launch_simt<8>(q, k, v, lengths, starts, o, lse, ws, B, S, H, Hk,
+                            hd, strides, bk, tiles_per_split, nsplit, softcap,
                             window, smem, s);
   }
 }

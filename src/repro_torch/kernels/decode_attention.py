@@ -18,6 +18,13 @@ values outside it.
 ``window`` goes beyond the TPU kernel: the models' sliding-window layers
 mask decode to the last ``window`` keys (``kpos >= length - window``), and
 the kernel skips the cache tiles wholly before them.
+
+So do ``starts`` and ``return_lse``, which a cache split on its sequence
+across ranks needs (``sharded.decode_attention``): ``starts`` masks the
+keys before a per-row bound, and ``return_lse`` returns each row's
+log-sum-exp beside the output, written by the kernel itself (by
+``da_combine``, or by the bf16 kernel when the cache is not split), so
+that :func:`.ref.combine_partials` can merge the slices' outputs.
 """
 
 from __future__ import annotations
@@ -218,12 +225,15 @@ def split_plan(q, k, block_k: int | None = None,
 
 
 def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
-                     block_k=None):
+                     block_k=None, starts=None, return_lse=False):
     """q: (B, H, hd); k, v: (B, Smax, Hk, hd); lengths: (B,) int32 in
     ``[0, Smax]``; ``window``: keys at ``kpos < length - window`` are
-    masked too.  Returns (B, H, hd) in q's dtype; ``Smax`` need not divide
-    ``block_k`` (None: :func:`block_size` chooses), and a row with
-    ``length == 0`` gives zeros."""
+    masked too; ``starts``: (B,) int32, keys at ``kpos < starts[b]`` are
+    masked too.  Returns (B, H, hd) in q's dtype, and with ``return_lse``
+    also each row's log-sum-exp, (B, H) fp32 (-inf for a row with no
+    valid key); ``Smax`` need not divide ``block_k`` (None:
+    :func:`block_size` chooses), and a row with no valid key gives
+    zeros."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,H,hd) and k, v (B,Smax,Hk,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -232,9 +242,9 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (H must be a multiple of Hk)")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError(f"lengths must be ({B},), got "
-                         f"{tuple(lengths.shape)}")
+    for name, t in (("lengths", lengths), ("starts", starts)):
+        if t is not None and tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if window is not None and window < 1:
@@ -249,26 +259,37 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
                          "grad while grad mode is on: the kernel has no "
                          "backward (run decode under torch.no_grad())")
     if sharded.is_dtensor(q):
+        if starts is not None or return_lse:
+            raise ValueError("decode_attention on DTensors takes no starts "
+                             "and returns no lse: it combines the slices "
+                             "of a split cache itself")
         return sharded.decode_attention(
-            decode_attention, decode_attention_ref, q, k, v, lengths,
-            softcap=softcap, window=window, block_k=block_k)
+            decode_attention, q, k, v, lengths, softcap=softcap,
+            window=window, block_k=block_k)
     if q.device.type in ("cpu", "meta"):
         return decode_attention_ref(q, k, v, lengths, softcap=softcap,
-                                    window=window)
+                                    window=window, starts=starts,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch(q, k, v, lengths, softcap, window, block_k)
+    return _launch(q, k, v, lengths, softcap, window, block_k, starts,
+                   return_lse)
 
 
-def _launch(q, k, v, lengths, softcap, window, block_k):
+def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,
+            return_lse=False):
     global launches
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or \
-            v.dtype != q.dtype or lengths.dtype != torch.int32:
+            v.dtype != q.dtype or lengths.dtype != torch.int32 or \
+            (starts is not None and starts.dtype != torch.int32):
         raise ValueError(f"decode_attention kernel takes float32 or bfloat16 "
-                         f"q, k, v of one dtype and int32 lengths, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}, {lengths.dtype}")
-    if not (k.device == q.device == v.device == lengths.device):
-        raise ValueError("q, k, v, lengths must be on one device")
+                         f"q, k, v of one dtype and int32 lengths and starts, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}, "
+                         f"{lengths.dtype}"
+                         + ("" if starts is None else f", {starts.dtype}"))
+    if not (k.device == q.device == v.device == lengths.device) or \
+            (starts is not None and starts.device != q.device):
+        raise ValueError("q, k, v, lengths, starts must be on one device")
     B, H, hd = q.shape
     Smax, Hk = k.shape[1], k.shape[2]
     esize = q.element_size()
@@ -288,10 +309,15 @@ def _launch(q, k, v, lengths, softcap, window, block_k):
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                      device=q.device) if plan["workspace_floats"] else None
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lengths = lengths.contiguous()
+    starts = None if starts is None else starts.contiguous()
     code = _build.library("decode_attention").da_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if starts is None else starts.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         _build.DTYPE_CODES[q.dtype], B, Smax,
         H, Hk, hd, _build.strides(q, k, v, o), plan["block_k"],
         plan["tiles_per_split"], plan["nsplit"], float(softcap or 0.0),
@@ -299,4 +325,4 @@ def _launch(q, k, v, lengths, softcap, window, block_k):
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", code)
     launches += 1
-    return o
+    return (o, lse) if return_lse else o

@@ -53,16 +53,21 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, softcap=None, window=None):
+def decode_attention_ref(q, k, v, lengths, *, softcap=None, window=None,
+                         starts=None, return_lse=False):
     """One new token per sequence against a KV cache.
 
     q: (B, H, hd); k, v: (B, Smax, Hk, hd) with H % Hk == 0; lengths: (B,)
     int32, the valid cache entries of each row (keys at ``kpos < length``).
     With a ``window``, keys at ``kpos < length - window`` are masked too:
     the new token, at position ``length - 1``, sees the ``window`` keys up
-    to itself, as a sliding-window layer masks decode.  Query head h reads
-    kv head ``h // (H // Hk)``.  Returns (B, H, hd) in q's dtype; a row
-    with ``length == 0`` gives zeros.
+    to itself, as a sliding-window layer masks decode.  With ``starts``
+    ((B,) int32), keys at ``kpos < starts[b]`` are masked too: a rank's
+    slice of a cache split on its sequence.  Query head h reads kv head
+    ``h // (H // Hk)``.  Returns (B, H, hd) in q's dtype; a row with no
+    valid key gives zeros.  With ``return_lse`` also each row's
+    log-sum-exp of its scaled (softcapped) valid scores, (B, H) fp32, -inf
+    for a row with no valid key: what :func:`combine_partials` needs.
     """
     B, H, hd = q.shape
     Smax, Hk = k.shape[1], k.shape[2]
@@ -77,9 +82,41 @@ def decode_attention_ref(q, k, v, lengths, *, softcap=None, window=None):
     mask = kpos[None, :] < lengths                                # (B, Smax)
     if window is not None:
         mask &= kpos[None, :] >= lengths - window
-    p = _softmax(s.masked_fill(~mask[:, None, None, :], -math.inf))
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    if starts is not None:
+        mask &= kpos[None, :] >= starts.to(q.device)[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], -math.inf)
+    o = torch.einsum("bhgk,bkhd->bhgd", _softmax(s), v.float())
+    o = o.reshape(B, H, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H)
+
+
+def combine_weights(lse, M):
+    """``exp(lse - M)``: each partial's weight against the rows' largest
+    log-sum-exp ``M``; 0 for a partial with no valid key, and for every
+    partial of a row whose ``M`` is -inf (never (-inf) - (-inf))."""
+    return torch.exp(lse - M.clamp_min(torch.finfo(torch.float32).min))
+
+
+def combine_partials(o, lse):
+    """Decode attention over a cache cut on its sequence into R slices,
+    from each slice's output and log-sum-exp (what the reference leaves to
+    XLA across ranks, ``repro/kernels/decode_attention.py:8-10``).
+
+    o: (R, B, H, hd), the slices' outputs; lse: (R, B, H) fp32.  With
+    ``M = max_r lse_r`` and ``w_r = exp(lse_r - M)``, returns ``sum_r w_r
+    o_r / sum_r w_r`` computed in fp32, (B, H, hd) in o's dtype; a row
+    whose every slice holds no valid key gives zeros, not NaN.
+    """
+    w = combine_weights(lse, lse.amax(dim=0))[..., None]    # (R, B, H, 1)
+    return merge_weighted((w * o.float()).sum(dim=0), w.sum(dim=0), o.dtype)
+
+
+def merge_weighted(num, den, dtype):
+    """``num / den`` in ``dtype``: the weighted outputs' sum over their
+    weights' (fp32), zeros where the weights sum to 0."""
+    return (num / torch.where(den == 0, torch.ones_like(den), den)).to(dtype)
 
 
 def ssd_ref(x, log_a, b, c, *, chunk=128):

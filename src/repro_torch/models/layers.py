@@ -397,8 +397,8 @@ def attention(p, x, *, positions, rope_theta=10000.0, causal=True,
         # row cache_len[b] of each slot, clamped as the reference's dynamic
         # update slice clamps its start
         at = cache_len.clamp(0, ck.shape[1] - 1).long()
-        write_rows(ck, at, k[:, 0].to(ck.dtype))
-        write_rows(cv, at, v[:, 0].to(cv.dtype))
+        write_rows(ck, at, k[:, 0])
+        write_rows(cv, at, v[:, 0])
         # the kernels take one dtype: a model in fp32 reads a copy of its
         # bf16 cache (bf16 models, the card's, read it as it is)
         q1, ck, cv = q[:, 0], ck.to(q.dtype), cv.to(q.dtype)

@@ -411,10 +411,12 @@ def write_seq(cache, start: int, new) -> None:
 
 def write_rows(cache, at, new) -> None:
     """``cache[b, at[b]] = new[b]`` for a (B, Smax, ...) cache, (B,) long
-    positions and (B, ...) ``new`` (a decode step's row of each slot)."""
+    positions and (B, ...) ``new`` (a decode step's row of each slot), cast
+    to the cache's dtype once its pending sums are reduced (a sum of
+    partials each rounded to bf16 is not the sum rounded)."""
     if not is_dtensor(cache):
         rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, at] = new
+        cache[rows, at] = new.to(cache.dtype)
         return
     local, off = _local_part(cache)
     part = _aligned(new, cache, {0: 0, **{d: d + 1
@@ -427,4 +429,4 @@ def write_rows(cache, at, new) -> None:
     pos = pos.clamp(0, local.shape[1] - 1)
     keep = local[rows, pos]
     mine = mine.reshape(-1, *([1] * (keep.ndim - 1)))
-    local[rows, pos] = torch.where(mine, part, keep)
+    local[rows, pos] = torch.where(mine, part.to(local.dtype), keep)

@@ -6,7 +6,7 @@ Each count is checked by hand or against an unsharded count: the FLOPs of
 a matrix product's local shard (the DTensor-level call and DTensor's
 global shape inference must not add theirs), a 1 x 1 mesh's train step
 against ``FlopCounterMode`` over the unsharded step, the bytes of known
-redistributions by kind.  Costs at 2, 3 and 4 groups of a reduced config
+redistributions by kind and of the split-KV combine's two collectives.  Costs at 2, 3 and 4 groups of a reduced config
 lie on a line that the whole depth's count meets: the eager trace runs
 every layer, so the reference's two-point extrapolation has nothing to
 recover.
@@ -117,6 +117,29 @@ def test_collectives_by_kind(world):
 
     got = dryrun.trace_costs(gather_and_wait, ())["collectives"]
     assert got["all-gather"] == got["total"] == 4 * 32 * 64
+
+
+@pytest.mark.parametrize("split", [("model",), ("data", "model")])
+def test_split_kv_combine_counts_its_collectives(world, split):
+    """decode_attention over a (4, 64, 2, 16) fp32 cache split on its
+    sequence over ``split`` of a 2 x 4 mesh, q (4, 8, 16) replicated: per
+    rank one all-gather of the (4, 8) log-sum-exp a splitting dimension
+    (sized by its output) and one all-reduce of (4, 8, 17) weighted
+    outputs and weights a splitting dimension, and nothing else."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels.decode_attention import decode_attention
+    mesh = _mesh((2, 4))
+    pl = [Shard(1) if n in split else Replicate() for n in ("data", "model")]
+    q = _meta_dtensor((4, 8, 16), mesh, [Replicate(), Replicate()])
+    k = _meta_dtensor((4, 64, 2, 16), mesh, pl)
+    lengths = torch.full((4,), 40, dtype=torch.int32, device="meta")
+    got = dryrun.trace_costs(
+        lambda a, b: decode_attention(a, b, b, lengths, window=20),
+        (q, k))["collectives"]
+    sizes = [mesh.size(mesh.mesh_dim_names.index(n)) for n in split]
+    assert got["all-gather"] == sum(4 * r * 4 * 8 for r in sizes), got
+    assert got["all-reduce"] == len(split) * 4 * 4 * 8 * 17, got
+    assert got["total"] == got["all-gather"] + got["all-reduce"], got
 
 
 def _granite_small(**kw):

@@ -255,7 +255,8 @@ def test_kernels_run_per_shard_on_meta_dtensors(fake_world):
     """flash, SSD and decode on ``meta`` DTensors split by batch and heads:
     each returns the global shape split as its query (x); GQA kv heads that
     do not split as the query heads are repeated; a cache split on its
-    sequence takes the plain version over the DTensors."""
+    sequence runs per slice and is combined across the splitting mesh
+    dimension, the output split as q's batch."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -288,4 +289,5 @@ def test_kernels_run_per_shard_on_meta_dtensors(fake_world):
     assert o.shape == q1.shape
     seq = dt((4, 64, 2, 32), [Shard(0), Shard(1)])
     o = da.decode_attention(q1, seq, seq, lengths)
-    assert o.shape == q1.shape
+    assert o.shape == q1.shape and \
+        tuple(o.placements) == (Shard(0), Replicate())

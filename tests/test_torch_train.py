@@ -3,8 +3,11 @@
 Three steps of ``launch.steps.make_train_step`` against the reference's
 ``make_train_step`` from one state carried across (parameters by
 ``convert.to_torch``, AdamW moments and step by
-``convert.adamw_state_to_torch``), on reduced xlstm, dense and zamba2
-configs in fp32 and the synthetic pipeline's batches: each step's loss
+``convert.adamw_state_to_torch``), on reduced xlstm, dense, zamba2, MoE
+(the router's aux loss and the dispatch's backward), enc-dec (frames, the
+non-causal and cross attention) and VLM (patch embeddings, the -1-labelled
+image prefix) configs in fp32 and the synthetic pipeline's batches (frames
+and patch embeddings included): each step's loss
 within ``LOSS_TOL`` relative, each parameter leaf after three steps within
 ``UPDATE_TOL`` of its total update (relative L2: Adam normalises near-zero
 gradients, so a bound on the parameters themselves would measure noise).
@@ -45,6 +48,7 @@ from repro_torch.models import build_model, get_config
 from repro_torch.models import layers as TL
 from repro_torch.optim import AdamWConfig, cosine_with_warmup
 
+from test_models_smoke import reduce_cfg as reduce_any
 from test_torch_lm import jax_params, reduce_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -68,16 +72,32 @@ def _carried_state(jp, seed=3):
     return state
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "granite-8b",
-                                  "zamba2-2.7b"])
+def _reduced(arch):
+    """(JAX config, port config), reduced; whisper's JAX encoder runs
+    unrolled, as tests/test_torch_train_loss.py runs it (its scan cannot
+    carry fp32 parameters past its bf16 input), and its step runs eagerly,
+    as tests/test_torch_encdec.py runs the model: jitted, XLA's
+    excess-precision rewrite drops the bf16 rounding of the frames plus the
+    sinusoidal table, which both packages' ``encode`` writes."""
+    if arch == "whisper-medium":
+        return (reduce_any(jax_config(arch)).replace(scan_layers=False),
+                reduce_any(get_config(arch)))
+    return reduce_cfg(jax_config(arch)), reduce_cfg(get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "granite-8b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b", "whisper-medium",
+                                  "internvl2-76b"])
 def test_train_steps_match_jax(arch):
-    jcfg, tcfg = reduce_cfg(jax_config(arch)), reduce_cfg(get_config(arch))
+    jcfg, tcfg = _reduced(arch)
     jmodel, tmodel = jax_build(jcfg), build_model(tcfg, device="cpu")
     np_params = jax_params(jmodel, "float32")
     state = _carried_state(jax.tree.map(jnp.asarray, np_params))
-    jstep = jax.jit(jmake_train_step(
+    jstep = jmake_train_step(
         jmodel, JAdamWConfig(lr=jcosine(1e-2, 2, 8), weight_decay=0.1),
-        None, None))
+        None, None)
+    if arch != "whisper-medium":
+        jstep = jax.jit(jstep)
     tstep = make_train_step(tmodel, AdamWConfig(
         lr=cosine_with_warmup(1e-2, 2, 8), weight_decay=0.1))
     jp = jax.tree.map(jnp.asarray, np_params)
@@ -85,10 +105,14 @@ def test_train_steps_match_jax(arch):
     tp = convert.to_torch(np_params, "cpu")
     ts = convert.adamw_state_to_torch(state, "cpu")
     data = JSyntheticLM(JDataConfig(vocab=jcfg.vocab, seq_len=S,
-                                    global_batch=B, seed=0))
+                                    global_batch=B, seed=0,
+                                    encoder_len=jcfg.encoder_len,
+                                    n_img_tokens=jcfg.n_img_tokens,
+                                    d_model=jcfg.d_model))
     for step in range(STEPS):
         batch = data.global_batch_at(step)
-        jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch))
+        with jax.disable_jit(arch == "whisper-medium"):
+            jp, js, jm = jstep(jp, js, jax.tree.map(jnp.asarray, batch))
         tp, ts, tm = tstep(tp, ts, convert.to_torch(batch, "cpu"))
         assert abs(tm["loss"].item() - float(jm["loss"])) <= \
             LOSS_TOL * abs(float(jm["loss"])), step
@@ -159,10 +183,15 @@ def _leaves(rng, shapes, dtype):
 
 @pytest.mark.parametrize("mask", [dict(causal=True),
                                   dict(causal=True, window=3, softcap=5.0),
-                                  dict(causal=False)], ids=str)
+                                  dict(causal=False),
+                                  dict(causal=False, sk=9)], ids=str)
 def test_flash_function_gradients(plain_launches, mask):
+    """Sq = Sk, and (``sk``) 7 queries over 9 keys without a mask, as an
+    enc-dec's cross-attention trains it."""
     rng = np.random.default_rng(0)
-    q, k, v = _leaves(rng, [(2, 7, 4, 8), (2, 7, 2, 8), (2, 7, 2, 8)],
+    mask = dict(mask)
+    sk = mask.pop("sk", 7)
+    q, k, v = _leaves(rng, [(2, 7, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8)],
                       torch.float32)
     fa_mod.backward_launches = 0
     o = fa_mod.FlashAttention.apply(q, k, v, mask.get("causal", True),
