@@ -33,7 +33,9 @@ version, its bound from the card's peak figures and, for attention,
 ``scaled_dot_product_attention`` as a yardstick, with its host work per
 call.  Each row also gives the registers and spills of the bf16
 tensor-core instances the path runs from the ``-Xptxas -v`` log and their
-HMMA instructions in the SASS (there must be some); the flash and decode
+tensor-core instructions in the SASS (there must be some: HMMA for
+``mma.sync``, HGMMA for the wide SSD's ``wgmma`` passes, which must also
+load by TMA, UTMALDG); the flash and decode
 rows their SASS opcode mix, the decode row ``nsplit`` and CTAs per SM, the
 SSD row the bytes of its workspace and its device time with b and c in
 buffers of their own (which must give the same output).
@@ -114,7 +116,9 @@ plain run routed by its own router, the top-k routings that differ from
 the kernel run's, and the MoE's error split by layer on its longest prompt
 (``error_by_layer``, with two faults of the attention for scale).  The
 xLSTM's wide SSD launches are required apart in its DAG loop and in its
-engine.  Six rows follow: ``ssd_scan`` at the mLSTM's widths,
+engine.  Six rows follow: ``ssd_scan`` at the mLSTM's widths (its new
+time beside the earlier kernel's, and where the time goes: each pass's
+device time from a ``torch.profiler`` trace, their sum and a call's span),
 ``flash_attention`` without a mask at whisper's encoder (beside SDPA),
 ``decode_attention`` over whisper's cross cache and its self cache, and at
 the qwen2-moe engine's and internvl2's widths (each beside masked SDPA),
@@ -153,7 +157,9 @@ power limit.  Last, at the path's shapes with launches counted from 0,
 each kernel's forward is held against the plain version (``TOL``), each
 Function's gradients against plain autograd's (``FN_GRAD_TOL``), and one
 plain backward is timed (flash also at whisper's cross-attention, whose
-row ``flash_attention_cross_whisper`` is added); the kernel rows carry the
+row ``flash_attention_cross_whisper`` is added, and the row
+``ssd_scan_mlstm_hd384_train`` times the wide SSD at the train path's
+shape, 8 × 512, where its forwards run); the kernel rows carry the
 phase's launches as ``launches_train``, flash's by family.
 
 The ``mesh`` phase follows ``train``: the launch slice.  First the dry-run
@@ -308,39 +314,58 @@ def host_ms(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e3
 
 
-def kernel_split(fn, calls: int = 10) -> dict:
-    """Device time per call (ms) of each CUDA kernel ``fn()`` launches, by
-    kernel name, from ``torch.profiler`` over ``calls`` calls; empty where
-    the profiler sees no device time."""
+def mma_build(what: str, ptxas: list, sass: list,
+              opcode: str = "HMMA") -> dict:
+    """Registers, spill stores and the fewest tensor-core instructions
+    (``opcode``: HMMA for ``mma.sync``, HGMMA for ``wgmma``) of the bf16
+    instances a path runs (their ``-Xptxas -v`` entries and SASS opcode
+    counts); raises if an instance has none."""
+    n = min(ops[opcode] for ops in sass)
+    if not n:
+        raise RuntimeError(f"{what}: a bf16 instance on the main path has no "
+                           f"{opcode} instruction in its SASS")
+    return {"registers": max(e["registers"] for e in ptxas),
+            "spill_stores": max(e["spill_stores"] for e in ptxas),
+            opcode.lower(): n}
+
+
+def kernel_trace(fn, calls: int = 20) -> dict:
+    """Per call of ``fn()``, from ``torch.profiler``'s device events of
+    each of ``calls`` calls (one profiler session a call, ended by a
+    synchronize, as ``device_busy_ms`` reads them): each kernel's median
+    duration (ms, by name), their sum, and the span from the first
+    kernel's start to the last one's end (below the sum where kernels
+    overlap, above it by the gaps between them); calls whose session holds
+    no device event are left out, and where none holds one the result is
+    empty."""
     import re
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    by_name: dict[str, list] = {}
+    spans, sums = [], []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0) or 0
-        name = re.search(r"(\w+)[<(]", ev.key)   # the kernel's own name
-        if t and name:
-            out[name.group(1)] = out.get(name.group(1), 0.0) + t / calls / 1e3
-    return out
-
-
-def mma_build(what: str, ptxas: list, sass: list) -> dict:
-    """Registers, spill stores and the fewest HMMA of the bf16 tensor-core
-    instances a path runs (their ``-Xptxas -v`` entries and SASS opcode
-    counts); raises if an instance has no HMMA."""
-    hmma = min(ops["HMMA"] for ops in sass)
-    if not hmma:
-        raise RuntimeError(f"{what}: a bf16 instance on the main path has no "
-                           "HMMA instruction in its SASS")
-    return dict(registers=max(e["registers"] for e in ptxas),
-                spill_stores=max(e["spill_stores"] for e in ptxas),
-                hmma=hmma)
+            torch.cuda.synchronize()
+        call = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not call:
+            continue
+        for e in call:
+            m = re.search(r"(\w+)[<(]", e.name)
+            by_name.setdefault(m.group(1) if m else e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+        spans.append((max(e.time_range.end for e in call)
+                      - min(e.time_range.start for e in call)) / 1e3)
+        sums.append(sum(e.time_range.elapsed_us() for e in call) / 1e3)
+    if not spans:
+        return {}
+    return {"kernel_ms": {k: statistics.median(v) for k, v in by_name.items()},
+            "sum_ms": statistics.median(sums),
+            "span_ms": statistics.median(spans), "calls": len(spans)}
 
 
 def check_close(what: str, got, want, atol: float = TOL,
@@ -620,7 +645,7 @@ def prefill_phase(dev, resources, net, out_dir, launches):
         return ssd_mod.ssd_scan(xs, la, bc, bc, chunk=chunk)
     ms, call_ms = time_ms(call), time_ms(call, hold=False)
     host = host_ms(call)
-    split = kernel_split(call)
+    split = kernel_trace(call).get("kernel_ms", {})
     # the general route, which copies b and c into shared memory rows of
     # their own: b and c as the same views of two other copies of x, so
     # the launch cannot read them from x's rows
@@ -761,7 +786,7 @@ def decode_phase(dev, resources, net, out_dir, launches):
         return da_mod.decode_attention(q, k, v, full, block_k=bk)
     ms, call_ms = time_ms(call), time_ms(call, hold=False)
     host = host_ms(call)
-    split = kernel_split(call)
+    split = kernel_trace(call).get("kernel_ms", {})
     plan = da_mod.split_plan(q, k, bk)
     plain_ms = time_ms(lambda: ref.decode_attention_ref(qf, kf, vf, full),
                        runs=10)
@@ -1864,73 +1889,134 @@ def lm_internvl(dev, cfg=None) -> dict:
                 max_len=n0 + v["new"], lengths=last)
 
 
-def ssd_mlstm_row(dev, launches, by_stage=None) -> dict:
-    """The ssd_scan row at xlstm-125m's mLSTM widths: x = v i, b = k /
-    sqrt(384), c = q, (1, 2048, 4, 384) bf16, log_a = log sigmoid(f) in
-    fp32, chunk 128 (the wide route), held against the plain version and
-    timed beside it; ``launches`` are the xLSTM path's wide-route ones,
-    ``by_stage`` the same by stage."""
+# ssd_scan's wide route before its redesign for Hopper (mma.sync, three
+# passes, the chunk states crossing memory four times): CUDA-event device
+# time in ms by shape (B, S, H, P), NVIDIA H100 80GB HBM3 at 700 W; the lm
+# path's shape from PERF.md's kernel table, the train path's from
+# ssd_wide_times on that kernel (PERF.md's findings on the wide route)
+SSD_WIDE_EARLIER_MS = {(1, 2048, 4, 384): 0.1776, (8, 512, 4, 384): 0.3772}
+
+
+def ssd_wide_inputs(dev, batch=1, seq=None):
+    """xlstm-125m's mLSTM inputs to ssd_scan, (batch, seq, 4, 384) bf16
+    (the lm path's (1, 2048) unless given), from the seed: x = v
+    sigmoid(i), b = k / sqrt(384), c = q, log_a = log sigmoid(f) in
+    fp32."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import ssd_scan as ssd_mod
-
-    Bn, Sn, Hn, P, chunk = 1, XLSTM_GRAPH_SEQ, 4, 384, 128
+    shape = (batch, seq or XLSTM_GRAPH_SEQ, 4, 384)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    shape = (Bn, Sn, Hn, P)
     v, k, q = (torch.randn(shape, generator=gen, device=dev)
                for _ in range(3))
     i_g, f_g = (torch.randn(shape[:3], generator=gen, device=dev)
                 for _ in range(2))
     x = (v * torch.sigmoid(i_g)[..., None]).to(torch.bfloat16)
-    b = (k / math.sqrt(P)).to(torch.bfloat16)
-    c = q.to(torch.bfloat16)
-    la = F.logsigmoid(f_g)
-    y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=chunk)
-    args = (x.float(), la, b.float(), c.float())
-    y_ref, fin_ref = ref.ssd_ref(*args, chunk=chunk)
-    err = check_close("ssd_scan_mlstm_hd384 y vs plain", y, y_ref)
-    fin_err = check_close("ssd_scan_mlstm_hd384 final state vs plain", fin,
-                          fin_ref)
+    b = (k / math.sqrt(shape[3])).to(torch.bfloat16)
+    return x, F.logsigmoid(f_g), b, q.to(torch.bfloat16)
+
+
+def ssd_wide_times(dev, batch=1, seq=None, chunk=128) -> dict:
+    """ssd_scan at the mLSTM's widths on :func:`ssd_wide_inputs`: its
+    device time (``ms``), per call (``call_ms``), host work a call
+    (``host_ms``) and where the time goes (``trace``, from
+    :func:`kernel_trace`).  It times whichever ``repro_torch`` is imported,
+    so another checkout's kernel is timed with that checkout's ``src`` on
+    ``PYTHONPATH``::
+
+        PYTHONPATH=<checkout>/src python3 -c 'import chip_smoke as s, torch;
+            print(s.ssd_wide_times(torch.device("cuda"), 8, 512))'
+    """
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x, la, b, c = ssd_wide_inputs(dev, batch, seq)
 
     def call():
         return ssd_mod.ssd_scan(x, la, b, c, chunk=chunk)
-    ms, call_ms = time_ms(call), time_ms(call, hold=False)
-    host = host_ms(call)
-    split = kernel_split(call)
+    return dict(ms=time_ms(call), call_ms=time_ms(call, hold=False),
+                host_ms=host_ms(call), trace=kernel_trace(call))
+
+
+def ssd_mlstm_row(dev, launches, by_stage=None, batch=1, seq=None,
+                  name="ssd_scan_mlstm_hd384", launches_of=None) -> dict:
+    """The ssd_scan row at xlstm-125m's mLSTM widths on
+    :func:`ssd_wide_inputs`, chunk 128 (the wide route), held against the
+    plain version and timed beside it and beside the earlier kernel's
+    time; where its time goes: each pass's device time from a trace, their
+    sum and the span of a call; ``launches`` are the xLSTM path's
+    wide-route ones, ``by_stage`` the same by stage."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    chunk = 128
+    x, la, b, c = ssd_wide_inputs(dev, batch, seq)
+    shape = tuple(x.shape)
+    Bn, Sn, Hn, P = shape
+    y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=chunk)
+    args = (x.float(), la, b.float(), c.float())
+    y_ref, fin_ref = ref.ssd_ref(*args, chunk=chunk)
+    err = check_close(f"{name} y vs plain", y, y_ref)
+    fin_err = check_close(f"{name} final state vs plain", fin, fin_ref)
+
+    t = ssd_wide_times(dev, batch, seq, chunk)
+    ms, call_ms, host, trace = t["ms"], t["call_ms"], t["host_ms"], t["trace"]
     plain_ms = time_ms(lambda: ref.ssd_ref(*args, chunk=chunk), runs=10)
     nc = -(-Sn // chunk)
     tri = chunk * (chunk + 1) // 2
     flops = 2.0 * Bn * Hn * nc * (tri * P + tri * P + 2 * chunk * P * P)
     ws_bytes = ssd_mod.workspace_bytes({"chunk": chunk}, (x.shape, b.shape),
                                        x.dtype)
-    passes = {name: ssd_mod.mma_passes(report("ssd_scan"), P, la.dtype, P)
-              for name, report in (("ptxas", _build.ptxas_report),
+    passes = {kind: ssd_mod.mma_passes(report("ssd_scan"), P, la.dtype, P)
+              for kind, report in (("ptxas", _build.ptxas_report),
                                    ("sass", _build.sass_opcodes))}
-    build = mma_build("ssd_scan_mlstm_hd384",
-                      sum(passes["ptxas"].values(), []),
-                      sum(passes["sass"].values(), []))
-    print("ssd_scan_mlstm_hd384 device time per pass (torch.profiler): " + (
-        ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-        or "not measured"))
-    print("ssd_scan_mlstm_hd384 bf16 passes: " + "; ".join(
-        f"{name}: registers {max(e['registers'] for e in es)}, spill stores "
-        f"{max(e['spill_stores'] for e in es)}, HMMA "
-        f"{min(o['HMMA'] for o in passes['sass'][name])}"
-        for name, es in sorted(passes["ptxas"].items())))
+    build = mma_build(name, sum(passes["ptxas"].values(), []),
+                      sum(passes["sass"].values(), []), "HGMMA")
+    tma = min(o["UTMALDG"] for os_ in passes["sass"].values() for o in os_)
+    if not tma:
+        raise RuntimeError(f"{name}: a wide pass loads no tile by TMA")
+    earlier = SSD_WIDE_EARLIER_MS.get(shape)
+    print(f"{name} at {shape}: {ms:.4f} ms of device time; earlier kernel "
+          + (f"{earlier:.4f} ms" if earlier else "not measured"))
+    if trace:
+        kt, over = trace["kernel_ms"], trace["sum_ms"] - trace["span_ms"]
+        print(f"{name} where the time goes (torch.profiler trace, per "
+              f"call): " + ", ".join(f"{k} {v:.4f} ms" for k, v in kt.items())
+              + f"; sum {trace['sum_ms']:.4f} ms, first start to last end "
+              f"{trace['span_ms']:.4f} ms ("
+              + (f"the passes overlap by {over:.4f} ms: ssd_wide_scan starts "
+                 "on the SMs ssd_wide_state leaves free and waits for its "
+                 "end" if over >= 0 else
+                 f"{-over:.4f} ms of gaps between the passes")
+              + "); " + (f"the {ms - trace['span_ms']:.4f} ms of the event "
+                         "time beyond the span are the events' own edges"
+                         if ms >= trace["span_ms"] else
+                         f"the profiled call's span is {trace['span_ms'] - ms:.4f}"
+                         " ms above the event time (the profiler's own cost)"))
+    else:
+        print(f"{name} where the time goes: not measured (the profiler saw "
+              "no device time)")
+    print(f"{name} bf16 passes: " + "; ".join(
+        f"{p}: registers {max(e['registers'] for e in es)}, spill stores "
+        f"{max(e['spill_stores'] for e in es)}, "
+        f"{ssd_mod.mma_opcode(p)} "
+        f"{min(o[ssd_mod.mma_opcode(p)] for o in passes['sass'][p])}, "
+        f"UTMALDG {min(o['UTMALDG'] for o in passes['sass'][p])}"
+        for p, es in sorted(passes["ptxas"].items())))
     return dict(
-        name="ssd_scan_mlstm_hd384", tpu="ssd_scan.py:93",
-        design="mma.sync bf16, chunk-parallel 3-pass, wide route (64 x 128 "
-               "state tiles; N streamed in slabs of 64 over 128-wide P "
-               "tiles)",
-        build=dict(**build, workspace_bytes=ws_bytes),
+        name=name, tpu="ssd_scan.py:93",
+        design="wgmma bf16 fed by TMA, warp-specialised, 2 passes (the "
+               "states walked per 64 x 128 tile, handed on once as bf16 "
+               "high and low parts; "
+               "the output over 192-wide P tiles, N in slabs of 64)",
+        build=dict(**build, utmaldg=tma, workspace_bytes=ws_bytes,
+                   **({"trace": trace} if trace else {})),
         shapes=f"x, b, c {shape} bf16 (x = v sigmoid(i), b = k / sqrt(384), "
                f"c = q), log_a fp32, chunk={chunk}; final-state max abs err "
-               f"{fin_err:.4g}; workspace {ws_bytes} B",
+               f"{fin_err:.4g}; workspace {ws_bytes} B; earlier kernel "
+               + (f"{earlier:.4f} ms" if earlier else "not measured"),
         err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
         host_ms=host, plain_ms=plain_ms, flops=flops,
         nbytes=moved_bytes(x, la, b, c, y, fin), lib_ms=None,
-        launches=launches, **({"launches_split": by_stage} if by_stage else {}))
+        launches=launches, **({"launches_split": by_stage} if by_stage else {}),
+        **({"launches_of": launches_of} if launches_of else {}))
 
 
 def flash_noncausal_row(dev, launches) -> dict:
@@ -2821,10 +2907,16 @@ def train_phase(dev, card, peak_flops, out_dir) -> tuple[dict, list]:
               f"plain backward {row['ms']:.3f} ms (CUDA-event median of 5)")
     gc.collect()
     torch.cuda.empty_cache()
-    rows = [flash_cross_row(dev, wh["flash cross"],
-                            bwd["flash_attention_cross_whisper"]["ms"])]
-    print(f"train phase: {time.perf_counter() - t0:.1f} s of wall time")
     xlz, zbz = xl["launches"], families["zamba2-2.7b"]["launches"]
+    # the wide SSD at the train path's shape, where its forwards run
+    rows = [flash_cross_row(dev, wh["flash cross"],
+                            bwd["flash_attention_cross_whisper"]["ms"]),
+            ssd_mlstm_row(dev, xlz["ssd_scan wide route"],
+                          batch=TRAIN_XLSTM["batch"], seq=TRAIN_XLSTM["seq"],
+                          name="ssd_scan_mlstm_hd384_train",
+                          launches_of=f"xlstm-125m's {TRAIN_XLSTM['steps']} "
+                                      "train steps, forward")]
+    print(f"train phase: {time.perf_counter() - t0:.1f} s of wall time")
     by_family = {label: dict(forward=f["launches"]["flash_attention"],
                              backward_plain=f["launches"][
                                  "flash_attention backward (plain)"],

@@ -15,9 +15,11 @@
 // log_a, y and the fp32 final state (the node's b = c are views of x), so
 // an ideal kernel is bound by bytes.
 //
-// Two routes behind the one entry point ssd_forward, chosen by x's dtype:
+// Three routes behind the one entry point ssd_forward, chosen by x's dtype
+// and the widths:
 //
-// * bfloat16: the chunk-parallel form of the recurrence, as GPU Mamba-2
+// * bfloat16, P <= 128 and N <= 64 (the narrow route, Mamba-2's heads):
+//   the chunk-parallel form of the recurrence, as GPU Mamba-2
 //   implementations run it, in three launches on the caller's stream.
 //   1. ssd_chunk_state, grid (chunk, head, batch): seg, the chunk's
 //      cumulative sum of log_a, by warp scans; its local state
@@ -43,26 +45,52 @@
 //   c is b (the node's b = c = x[..., :N]), passes 1 and 3 copy only x and
 //   read b and c from its rows in shared memory: each byte is read once.
 //   L is the autotuner's chunk rounded up to 16 (at most 256); P and N are
-//   zero-padded to multiples of 16 in shared memory (P <= 128, N <= 64),
-//   and the instances hold P's n8 tiles as a template parameter (4, 8, 10
-//   or 16).  The workspace (B, H, nc, N, P) fp32 states and (B, H, nc)
-//   decays is the caller's.
-//   Wider heads (P > 128 or N > 64, up to 384 each: the xLSTM's mLSTM runs
-//   P = N = 384) take the wide route, whose chunk is at most 128.  Pass 1
-//   tiles the (N, P) chunk state over the grid, one 64 x 128 tile a CTA.
-//   Pass 3 (ssd_chunk_scan_wide) tiles P over the grid, 128 columns a CTA,
-//   and streams N through shared memory in slabs of 64: per slab the c and
-//   b rows and the S_in rows of its P tile arrive, and each warp adds the
-//   slab's share of c b^T (its m16 row tile's causal scores) and of
-//   c . S_in to accumulators it keeps in registers across the slabs; the
-//   decay mask and the product with x follow once N is summed.  A 384 x
-//   384 fp32 state never sits in one CTA, as the TPU's VMEM holds it.
+//   zero-padded to multiples of 16 in shared memory, and the instances
+//   hold P's n8 tiles as a template parameter (4, 8, 10 or 16).  The
+//   workspace (B, H, nc, N, P) fp32 states and (B, H, nc) decays is the
+//   caller's.
+// * bfloat16, P > 128 or N > 64, each up to 384, chunk L <= 128 (the wide
+//   route: the xLSTM's mLSTM runs P = N = 384).  Bound by bytes too: at
+//   (1, 2048, 4, 384) x, b, c and y are 6.3 MB each and the final state
+//   2.4 MB, 27.6 MB or 8.2 us at 3.35 TB/s, against 6.4 GFLOP of products
+//   (6.5 us at the bf16 peak) of which the high/low splits below double a
+//   part.  Two launches, each a warp-specialised Hopper kernel: producer
+//   warps keep TMA tile loads (128-byte swizzled boxes of 64 columns) in
+//   flight through mbarrier rings, consumer warpgroups multiply on wgmma
+//   with their operands in shared memory.
+//   A. ssd_wide_state, grid (64 x 128 state tile, head, batch): walks the
+//      chunks in order with its tile of the running state in a
+//      warpgroup's accumulators, as the TPU kernel's grid walks them with
+//      the whole state in VMEM; per chunk it hands S_in[c] (c >= 1) to the
+//      workspace as a high and a low bf16 part by TMA stores, then
+//      state = state exp(total) + (b w)^T x.  Two stager warpgroups and a
+//      weights warp prepare the next chunk's (b w)^T while the current
+//      chunk's products run.  The last state is the final state, in
+//      fp32.
+//   B. ssd_wide_scan, grid (chunk x 192-wide P tile, head, batch: 128
+//      CTAs, one wave, at the shape above): two consumer warpgroups of 64
+//      rows; N streams through the ring in slabs of 64 (c, b and the S_in
+//      slab's two parts), c b^T and c . S_in on wgmma, then
+//      y = exp(seg_i) (c . S_in) + G x with G in registers.  It is
+//      launched as pass A's programmatic dependent: its CTAs start on the
+//      SMs pass A leaves free, load x and their first slabs of c and b,
+//      and wait for pass A's end (griddepcontrol.wait) before they ask
+//      for S_in.
+//   So the chunk states cross memory twice (pass A writes them, pass B
+//   reads them), as high and low bf16 parts, which take the bytes of
+//   fp32: B H (nc - 1) N P 4 bytes each way, 35.4 MB at the shape above,
+//   where the three-pass form moved four fp32 crossings (151 MB); pass
+//   A's loads and stores keep their lines in L2 for pass B (evict_last),
+//   pass B's last reads let theirs go (evict_first).  The
+//   hand-off needs no flag and no wait between CTAs of one grid, and sums
+//   run in a fixed order, so two calls give equal bits.  Which operands
+//   keep a high/low split, and why, is noted at each pass.
 // * float32: ssd_kernel, the SIMT kernel (fp32 FMA on the CUDA cores, one
 //   CTA per (batch, head) looping over the chunks with the state in shared
 //   memory), which keeps fp32 products and so the fp32 tolerance of the
 //   tests; no TF32 and no bf16 product is allowed there.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -214,13 +242,30 @@ constexpr int kLoadBatch = 8;  // S_in loads in flight per thread
 constexpr int kS4 = 16 * kMaxNK * 8 * kMaxPT / 4 / kMmaThreads;
 constexpr int kPassThreads = 128;
 constexpr int kPassUnroll = 16;  // chunks whose loads run ahead in pass 2
-// the wide route: P tiles of 8 kWidePT columns and N tiles (pass 1) or
-// slabs (pass 3) of kWideN, a chunk of at most kWideMaxChunk (one m16 row
-// tile per warp), P and N up to kMaxWidth
-constexpr int kWidePT = 16;
-constexpr int kWideN = 64;
-constexpr int kWideMaxChunk = 16 * kMmaWarps;
+// the wide route (P > 8 kMaxPT or N > 16 kMaxNK, each up to kMaxWidth, a
+// chunk of at most kWideMaxChunk): TMA boxes of kBox bf16 columns (one
+// 128-byte swizzled row a step) by kWideMaxChunk rows; pass A keeps state
+// tiles of kWideTN rows by kStateTP columns, pass B output tiles of
+// kScanTP columns and streams N in slabs of kWideTN
+constexpr int kBox = 64;
+constexpr int kWideTN = kBox;
+constexpr int kStateTP = 2 * kBox;
+constexpr int kScanTP = 3 * kBox;
+constexpr int kWideMaxChunk = 128;
 constexpr int kMaxWidth = 384;
+// pass A's rings: b's box of a chunk, x's two boxes of a chunk
+constexpr int kBStages = 3, kXStages = 2;
+constexpr int kScanStages = 2;   // pass B's ring: c, b and S_in of a slab
+// pass A: the MMA warpgroup, two stager warpgroups, then a warp that loads
+// b, one that stores S_in, one that computes the weights, one that loads x
+constexpr int kStateThreads = 4 * 128;
+constexpr int kMmaRegs = 168, kOtherRegs = 112;  // 128 + 3 * 128 threads
+// two consumer warpgroups and a producer warpgroup, one thread of which
+// issues the loads: wgmma kernels hold registers by whole warpgroups, and
+// setmaxnreg hands the producer's to the consumers
+constexpr int kScanThreads = 3 * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kSmallBytes = 2048;  // barriers, weights, seg (both passes)
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -256,33 +301,43 @@ __host__ __device__ inline Layout scan_layout(int L, int Pp, int Np, bool bx,
   o.total = o.c + (cb ? 0 : 2 * (size_t)L * (Np + 8));
   return o;
 }
-// pass 3 of the wide route: x's P tile, the S_in slab's high and low
-// parts, seg, exp(seg), and the b and c slabs
-__host__ __device__ inline Layout wide_layout(int L) {
-  const size_t sx = 8 * kWidePT + 8, sn = kWideN + 8;
-  Layout o{};
-  o.x = 0;
-  o.sh = o.x + 2 * (size_t)L * sx;
-  o.sl = o.sh + 2 * (size_t)kWideN * sx;
-  o.seg = o.sl + 2 * (size_t)kWideN * sx;
-  o.eseg = o.seg + 4 * (size_t)L;
-  o.b = o.eseg + 4 * (size_t)L;
-  o.c = o.b + 2 * (size_t)L * sn;
-  o.total = o.c + 2 * (size_t)L * sn;
-  return o;
-}
 inline bool wide_route(int P, int N) {
   return P > 8 * kMaxPT || N > 16 * kMaxNK;
 }
+// The wide route's dynamic shared memory: 1024 bytes of slack to align
+// the base (TMA's 128-byte swizzle repeats every 1024 bytes and the wgmma
+// descriptors assume it), the tiles, then kSmallBytes.  A box is
+// kWideMaxChunk rows of 128 bytes whatever the chunk (rows L .. 127 stay
+// zero: wgmma takes 64-row tiles and the steps of a k16 block); an S_in
+// box kWideTN rows.  Pass A: b's ring of boxes, x's ring of two boxes a
+// stage, then two buffers of (b w)^T as high and low parts, each two
+// boxes of kWideTN rows, then S_in[c]'s high and low parts on their way
+// out, two boxes each; pass B: x's three boxes, then per stage c's and
+// b's box and the S_in slab's three, high part then low part.
+constexpr size_t kBoxBytes = (size_t)kWideMaxChunk * 2 * kBox;
+constexpr size_t kSBoxBytes = (size_t)kWideTN * 2 * kBox;
+__host__ __device__ constexpr size_t wide_state_ring() {
+  return (kBStages + 2 * kXStages) * kBoxBytes;
+}
+__host__ __device__ constexpr size_t wide_state_tiles() {
+  return wide_state_ring() + (2 * 4 + 4) * kSBoxBytes;
+}
+__host__ __device__ constexpr size_t wide_scan_stage() {
+  return 2 * kBoxBytes + 2 * 3 * kSBoxBytes;
+}
+__host__ __device__ constexpr size_t wide_scan_tiles() {
+  return 3 * kBoxBytes + kScanStages * wide_scan_stage();
+}
+constexpr size_t kWideStateSmem = 1024 + wide_state_tiles() + kSmallBytes;
+constexpr size_t kWideScanSmem = 1024 + wide_scan_tiles() + kSmallBytes;
+static_assert(kWideScanSmem <= 232448 && kWideStateSmem <= 232448,
+              "the wide route's tiles fit the card's shared memory");
 // kernels/ssd_scan.py smem_bytes() computes the same figure for the
 // autotuner's pruning: the larger of the two passes where b and c have
-// rows of their own; a launch that reads them from x's takes less
+// rows of their own (a narrow launch that reads them from x's takes less)
 inline size_t chunked_smem(int L, int P, int N) {
-  if (wide_route(P, N)) {
-    const size_t a = state_layout(L, 8 * kWidePT, kWideN, false).total;
-    const size_t b = wide_layout(L).total;
-    return a > b ? a : b;
-  }
+  if (wide_route(P, N))
+    return kWideStateSmem > kWideScanSmem ? kWideStateSmem : kWideScanSmem;
   const size_t a = state_layout(L, round16(P), round16(N), false).total;
   const size_t b = scan_layout(L, round16(P), round16(N), false, false).total;
   return a > b ? a : b;
@@ -295,9 +350,6 @@ struct ChunkArgs {
   float* ws;     // (B, H, nc, N, P) states
   float* decay;  // (B, H, nc) exp(total)
   int S, H, P, N, L, Pp, Np, nc;
-  // pass 1's tiles of the (N, P) chunk state: tn x tp (padded widths),
-  // ntiles x ptiles of them; one tile of Np x Pp below the wide route
-  int tp, tn, ptiles, ntiles;
   Strides xs, as, bs, cs, ys;
   int vx, vb, vc;  // rows may be copied as 16-byte pieces
   // b's rows are the first N columns of x's (N a multiple of 16), and c's
@@ -381,33 +433,28 @@ __device__ __forceinline__ void scale_split(unsigned pair, float2 w,
              __uint_as_float(pair & 0xffff0000u) * w.y, h, l);
 }
 
-// Pass 1: one tile of the local state of a (chunk, head, batch),
-// s = (b w)^T x: state rows n0 .. n0 + tn - 1 and columns p0 .. p0 + tp - 1
-// (the whole state below the wide route).  Warp w computes tile rows
-// 16 (w % 4) .. + 15 against one half of the tile's n8 tiles: A = b^T by
-// ldmatrix.trans, scaled by each step's weight in registers and split into
-// high and low parts; B = x by ldmatrix.trans.  PT is the n8 tiles the
-// instance holds (tp <= 8 PT).
+// Pass 1: the local state of one (chunk, head, batch), s = (b w)^T x.  Warp
+// w computes state rows 16 (w % 4) .. + 15 against one half of P's n8
+// tiles: A = b^T by ldmatrix.trans, scaled by each step's weight in
+// registers and split into high and low parts; B = x by ldmatrix.trans.
+// PT is the n8 tiles the instance holds (P rounded up to 16 <= 8 PT).
 template <class A, int PT>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     ssd_chunk_state(const ChunkArgs a) {
   extern __shared__ __align__(16) unsigned char ssd_smem[];
-  const int L = a.L, sx = a.tp + 8, sn = a.tn + 8;
-  const Layout lo = state_layout(L, a.tp, a.tn, a.bx);
+  const int L = a.L, sx = a.Pp + 8, sn = a.Np + 8;
+  const Layout lo = state_layout(L, a.Pp, a.Np, a.bx);
   bf16* Xs = reinterpret_cast<bf16*>(ssd_smem + lo.x);
   float* w = reinterpret_cast<float*>(ssd_smem + lo.seg);
   bf16* Bs = reinterpret_cast<bf16*>(ssd_smem + lo.b);
-  const int tiles = a.ptiles * a.ntiles, tile = blockIdx.x % tiles;
-  const int ic = blockIdx.x / tiles, h = blockIdx.y, bb = blockIdx.z;
+  const int ic = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
   const int t0 = ic * L, rows = min(L, a.S - t0);
-  const int p0 = tile % a.ptiles * a.tp, n0 = tile / a.ptiles * a.tn;
-  const int pw = min(a.tp, a.P - p0), nw = min(a.tn, a.N - n0);
 
-  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h + p0, a.xs.s, t0, rows,
-            L, pw, a.tp, a.vx);
+  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h, a.xs.s, t0, rows, L,
+            a.P, a.Pp, a.vx);
   if (!a.bx)
-    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h + n0, a.bs.s, t0, rows,
-              L, nw, a.tn, a.vb);
+    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h, a.bs.s, t0, rows, L,
+              a.N, a.Np, a.vb);
   cp_async_commit();
   chunk_cumsum(w, static_cast<const A*>(a.la) + bb * a.as.b + h * a.as.h,
                a.as.s, t0, rows, L);
@@ -420,13 +467,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   __syncthreads();
 
   const size_t slice = (size_t)(bb * a.H + h) * a.nc + ic;
-  if (threadIdx.x == 0 && tile == 0) a.decay[slice] = expf(total);
+  if (threadIdx.x == 0) a.decay[slice] = expf(total);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp % 4, pt = a.tp / 8;
+  const int mt = warp % 4, pt = a.Pp / 8;
   const int half = (pt / 2 + 1) / 2 * 2;  // n8 tiles of the first half
   const int n_lo = warp < 4 ? 0 : half, n_hi = warp < 4 ? half : pt;
-  if (mt >= a.tn / 16) return;
+  if (mt >= a.Np / 16) return;
   const bf16* Bu = a.bx ? Xs : Bs;
   const int bstr = a.bx ? sx : sn;
   const unsigned b_base = smem_addr(
@@ -465,7 +512,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       mma_bf16(acc[n + 1], al, xf[n / 2][2], xf[n / 2][3]);
     }
   }
-  float* out = a.ws + slice * a.N * a.P + (size_t)n0 * a.P + p0;
+  float* out = a.ws + slice * a.N * a.P;
 #pragma unroll
   for (int n = 0; n < PT; ++n) {
     if (n < n_lo || n >= n_hi) continue;
@@ -473,7 +520,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     for (int e = 0; e < 4; ++e) {
       const int row = 16 * mt + g + 8 * (e >> 1);
       const int col = n * 8 + 2 * tq + (e & 1);
-      if (row < nw && col < pw) out[row * a.P + col] = acc[n][e];
+      if (row < a.N && col < a.P) out[row * a.P + col] = acc[n][e];
     }
   }
 }
@@ -734,202 +781,575 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-// Pass 3 of the wide route: the output columns p0 .. p0 + 127 of one
-// (chunk, head, batch).  Warp w owns the m16 row tile w (L <= 128).  N
-// streams through shared memory in slabs of kWideN: per slab, the warp
-// loads its c fragments once and adds c . S_in (high and low parts) to its
-// output accumulators and c b^T to its causal score tiles, both held in
-// registers across the slabs.  Then the output is scaled by exp(seg_i),
-// the scores are decay-masked, split, and multiplied with x's P tile.
-template <class A, int PT>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-    ssd_chunk_scan_wide(const ChunkArgs a) {
-  static_assert(PT == kWidePT, "wide_layout holds P tiles of 8 kWidePT");
-  extern __shared__ __align__(16) unsigned char ssd_smem[];
-  constexpr int TP = 8 * PT, sx = TP + 8, sn = kWideN + 8;
-  constexpr int JT = kWideMaxChunk / 16;  // k16 tiles of j, at most
+// ---------------------------------------------------------------------------
+// The wide route: warp-specialised wgmma passes fed by TMA
+// ---------------------------------------------------------------------------
+
+struct WideArgs {
+  // x, b, c: 4-d maps (width, head, step, batch), boxes of kBox columns by
+  // L steps; S_in: a 3-d map (P, N, 2 state slot + part), boxes of kBox x
+  // kWideTN
+  CUtensorMap mx, mb, mc, ms;
+  const void* la;
+  bf16* y;
+  bf16* ws;    // (B, H, nc - 1, 2, N, Pw) S_in[1 ..], high and low parts
+  float* fin;  // (B, H, N, P)
+  int S, H, P, N, L, nc, Pw;
+  // 1, or 0 where the tensor's head (batch) stride is 0: the map then
+  // holds one head (batch) and every CTA reads coordinate 0
+  int xh, xb, bh, bb, ch, cb;
+  Strides as, ys;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+// zero bytes [from, to) of a shared-memory tile, 16 at a time, by the
+// block's threads
+__device__ __forceinline__ void zero_bytes(unsigned char* p, size_t from,
+                                           size_t to) {
+  for (size_t o = from + 16 * threadIdx.x; o < to; o += 16 * blockDim.x)
+    *reinterpret_cast<uint4*>(p + o) = make_uint4(0, 0, 0, 0);
+}
+// the inclusive cumulative sum over a warpgroup's 128 threads of v (one
+// step each): a warp scan by shuffles, then the totals of the warps
+// before, from `tot` (4 floats) after a barrier `bar` over the
+// warpgroup.  Returns the thread's sum; *all is the warpgroup's total.
+__device__ __forceinline__ float wg_cumsum(float v, float* tot, int bar,
+                                           float* all) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const float n = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += n;
+  }
+  if (lane == 31) tot[warp] = v;
+  named_sync(bar, 128);
+  float base = 0.f, sum = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    base += w < warp ? tot[w] : 0.f;
+    sum += tot[w];
+  }
+  *all = sum;
+  return base + v;
+}
+// Pass A: one (N, P) state tile of kWideTN x kStateTP of a (head, batch),
+// walking its chunks in order as the TPU kernel's grid walks them, the
+// running state in the accumulators of one warpgroup (the MMA warpgroup).
+// Per chunk c it hands on S_in[c] (the state before the chunk, c >= 1) in
+// bf16 to the workspace, then state = state exp(total) + (b w)^T x on
+// wgmma, A and B from shared memory.  A = (b w)^T, b's rows times each
+// step's weight w_j = exp(total - seg_j), is staged by two stager
+// warpgroups, one 64-step half each, into a ring of two buffers while the
+// previous chunk's products run, so the walk waits on the tensor cores and
+// not on the staging: b^T by ldmatrix.trans from b's swizzled box, scaled
+// in registers, stored by stmatrix as a high and a low bf16 part (two
+// products: the final state is held at the fp32 tolerance, and one bf16
+// rounding of b w would cost 8 bits of it).  The MMA warpgroup writes
+// each S_in[c] from its accumulators to shared memory as a high and a
+// low bf16 part while the chunk's products run (pass B multiplies both,
+// so S_in keeps about 16 bits of the fp32 state the TPU kernel keeps in
+// VMEM, whatever b's scale).  The fourth warpgroup's warps: two
+// producers keep b (for the stagers) and x (for the MMA warpgroup) of the
+// chunks ahead in flight by TMA, each in a ring of its own; a store warp
+// takes each S_in[c] out of shared memory by TMA stores; a weights warp
+// computes each chunk's w.  The MMA warpgroup takes the others' spare
+// registers (setmaxnreg).
+template <class A>
+__global__ void __launch_bounds__(kStateThreads, 1)
+    ssd_wide_state(const __grid_constant__ WideArgs a) {
+  extern __shared__ __align__(16) unsigned char wide_raw[];
+  unsigned char* sm = align1024(wide_raw);
   const int L = a.L;
-  const Layout lo = wide_layout(L);
-  bf16* Xs = reinterpret_cast<bf16*>(ssd_smem + lo.x);
-  bf16* Sh = reinterpret_cast<bf16*>(ssd_smem + lo.sh);
-  bf16* Sl = reinterpret_cast<bf16*>(ssd_smem + lo.sl);
-  float* seg = reinterpret_cast<float*>(ssd_smem + lo.seg);
-  float* eseg = reinterpret_cast<float*>(ssd_smem + lo.eseg);
-  bf16* Bs = reinterpret_cast<bf16*>(ssd_smem + lo.b);
-  bf16* Cs = reinterpret_cast<bf16*>(ssd_smem + lo.c);
-  const int ic = blockIdx.x / a.ptiles, h = blockIdx.y, bb = blockIdx.z;
-  const int p0 = blockIdx.x % a.ptiles * TP, pw = min(TP, a.P - p0);
+  // b's and x's rings: loaded, used
+  uint64_t* bfull = reinterpret_cast<uint64_t*>(sm + wide_state_tiles());
+  uint64_t* bempty = bfull + kBStages;
+  uint64_t* xfull = bempty + kBStages;
+  uint64_t* xempty = xfull + kXStages;
+  uint64_t* afull = xempty + kXStages;     // A buffer staged, per buffer
+  uint64_t* aempty = afull + 2;            // A buffer multiplied
+  uint64_t* sfull = aempty + 2;            // S_in[c] written to sout
+  uint64_t* sempty = sfull + 1;            // ... and stored from it
+  uint64_t* wfull = sempty + 1;            // weights written, per buffer
+  uint64_t* wempty = wfull + 2;            // weights used
+  float* atot = reinterpret_cast<float*>(wempty + 2);  // A's chunk total
+  float* wtot = atot + 2;   // the weights' chunk total, per buffer
+  float* wbuf = wtot + 2;   // per buffer: 128 weights
+  const int h = blockIdx.y, bz = blockIdx.z;
+  const int ptiles = (a.P + kStateTP - 1) / kStateTP;
+  const int p0 = blockIdx.x % ptiles * kStateTP;
+  const int n0 = blockIdx.x / ptiles * kWideTN;
+  const bool two = p0 + kBox < a.P;  // x's second box holds columns
+  const size_t bhs = (size_t)bz * a.H + h;
+  // b's ring stage s; x's ring stage s, its first and second box
+  auto bring = [&](int s) { return sm + s * kBoxBytes; };
+  auto xring = [&](int s, int k) {
+    return sm + (kBStages + 2 * s + k) * kBoxBytes;
+  };
+  // A buffer u: high parts (k boxes 0, 1), then low parts
+  auto abuf = [&](int u, int k) {
+    return sm + wide_state_ring() + (4 * u + k) * kSBoxBytes;
+  };
+  // S_in[c] on its way to the workspace: the high part's two boxes of 64
+  // columns, then the low part's
+  unsigned char* sout = sm + wide_state_ring() + 8 * kSBoxBytes;
+  // ssd_wide_scan may start on the SMs this grid leaves free; it waits for
+  // this grid's end before it reads S_in
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], 256);
+    }
+    for (int s = 0; s < kXStages; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], 128);
+    }
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(&afull[u], 256);
+      mbar_init(&aempty[u], 128);
+    }
+    mbar_init(sfull, 128);
+    mbar_init(sempty, 1);
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(&wfull[u], 32);
+      mbar_init(&wempty[u], 256);
+    }
+    mbar_fence_init();
+  }
+  // rows L .. 127 stay zero, and x's second box where it would lie wholly
+  // past P (TMA writes neither)
+  for (int s = 0; s < kBStages; ++s)
+    zero_bytes(bring(s), (size_t)L * 2 * kBox, kBoxBytes);
+  for (int s = 0; s < kXStages; ++s)
+    for (int k = 0; k < 2; ++k)
+      zero_bytes(xring(s, k), k == 1 && !two ? 0 : (size_t)L * 2 * kBox,
+                 kBoxBytes);
+  fence_proxy_async();
+  __syncthreads();
+
+  // the roles by warp, uniform to the compiler (a branch it cannot prove
+  // warp-uniform makes it serialise the wgmma that follow)
+  const int wid = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int wg = wid >> 2, warp = wid & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * warp + g;  // a thread's state rows r0, r0 + 8
+
+  if (wg > 0)  // their registers go to the MMA warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kOtherRegs));
+  if (wid == 13) {  // the store warp: S_in[c]'s two parts out by TMA
+    if (lane == 0) {
+      for (int ic = 1; ic < a.nc; ++ic) {
+        mbar_wait(sfull, (ic - 1) & 1);
+        const int slot = 2 * ((int)(bhs * (a.nc - 1)) + ic - 1);
+        const uint64_t keep = l2_evict_last();  // ssd_wide_scan reads it
+        for (int part = 0; part < 2; ++part) {
+          unsigned char* box = sout + 2 * part * kSBoxBytes;
+          tma_store_3d(&a.ms, box, p0, n0, slot + part, keep);
+          if (two)
+            tma_store_3d(&a.ms, box + kSBoxBytes, p0 + kBox, n0, slot + part,
+                         keep);
+        }
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(sempty);
+      }
+      bulk_wait();
+    }
+    return;
+  }
+  if (wid == 14) {  // the weights warp: 4 steps of each chunk a lane
+    const A* la = static_cast<const A*>(a.la) + bz * a.as.b + h * a.as.h;
+    float v[4], nv[4];
+    auto load = [&](int ic, float (&out)[4]) {
+      const int t0 = ic * L, rows = min(L, a.S - t0);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = 4 * lane + k;
+        out[k] = t < rows ? to_float(la[(long long)(t0 + t) * a.as.s]) : 0.f;
+      }
+    };
+    load(0, nv);
+    for (int ic = 0; ic < a.nc; ++ic) {
+      const int u = ic & 1, rows = min(L, a.S - ic * L);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = nv[k];
+      if (ic + 1 < a.nc) load(ic + 1, nv);  // ahead of its use
+      // the lane's inclusive sums, then the lanes' before it
+#pragma unroll
+      for (int k = 1; k < 4; ++k) v[k] += v[k - 1];
+      float run = v[3];
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const float n = __shfl_up_sync(0xffffffffu, run, off);
+        if (lane >= off) run += n;
+      }
+      const float before = run - v[3];
+      const float total = __shfl_sync(0xffffffffu, run, 31);
+      mbar_wait(&wempty[u], (ic >> 1 & 1) ^ 1);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int t = 4 * lane + k;
+        wbuf[128 * u + t] =
+            t < rows ? exp2_approx((total - before - v[k]) * kLog2e) : 0.f;
+      }
+      if (lane == 0) wtot[u] = total;
+      mbar_arrive(&wfull[u]);
+    }
+    return;
+  }
+  if (wid == 12 || wid == 15) {  // the producers of b and of x
+    if (lane == 0) {
+      const bool xs = wid == 15;
+      const uint64_t keep = l2_evict_last();  // ssd_wide_scan reads them
+      for (int ic = 0; ic < a.nc; ++ic) {
+        const int t0 = ic * L;
+        if (xs) {
+          const int s = ic % kXStages, ph = ic / kXStages & 1;
+          mbar_wait(&xempty[s], ph ^ 1);
+          mbar_expect_tx(&xfull[s], (two ? 2 : 1) * L * 2 * kBox);
+          tma_load_4d(xring(s, 0), &a.mx, &xfull[s], p0, h * a.xh, t0,
+                      bz * a.xb, keep);
+          if (two)
+            tma_load_4d(xring(s, 1), &a.mx, &xfull[s], p0 + kBox, h * a.xh,
+                        t0, bz * a.xb, keep);
+        } else {
+          const int s = ic % kBStages, ph = ic / kBStages & 1;
+          mbar_wait(&bempty[s], ph ^ 1);
+          mbar_expect_tx(&bfull[s], L * 2 * kBox);
+          tma_load_4d(bring(s), &a.mb, &bfull[s], n0, h * a.bh, t0,
+                      bz * a.bb, keep);
+        }
+      }
+    }
+    return;
+  }
+
+  if (wg > 0) {  // the stagers: half hf of each chunk's steps
+    const int hf = wg - 1, t = threadIdx.x & 127;
+    // the ldmatrix row of this lane in b's swizzled box: step
+    // (lane & 7) + 8 (lane >> 4) of a k16 block, 16-byte column block
+    // 2 warp + ((lane >> 3) & 1) (the warp's 16 state rows)
+    const int lrow = (lane & 7) + 8 * (lane >> 4);
+    const int lcol = ((2 * warp + ((lane >> 3) & 1)) ^ (lane & 7)) * 16;
+    const int srow = 16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+    for (int ic = 0; ic < a.nc; ++ic) {
+      const int s = ic % kBStages, u = ic & 1, ph = ic >> 1 & 1;
+      const float* w = wbuf + 128 * u;
+      mbar_wait(&wfull[u], ph);
+      mbar_wait(&aempty[u], ph ^ 1);
+      mbar_wait(&bfull[s], ic / kBStages & 1);
+      const unsigned char* bt = bring(s);
+      unsigned char* hi = abuf(u, hf);
+      unsigned char* lo = abuf(u, 2 + hf);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = 4 * hf + k4;
+        unsigned af[4], ah[4], al[4];
+        ldsm_x4_trans(smem_addr(bt + (16 * kk + lrow) * 2 * kBox + lcol),
+                      af);
+        const float2 w0 =
+            *reinterpret_cast<const float2*>(w + 16 * kk + 2 * tq);
+        const float2 w1 =
+            *reinterpret_cast<const float2*>(w + 16 * kk + 2 * tq + 8);
+        scale_split(af[0], w0, ah[0], al[0]);
+        scale_split(af[1], w0, ah[1], al[1]);
+        scale_split(af[2], w1, ah[2], al[2]);
+        scale_split(af[3], w1, ah[3], al[3]);
+        // the k16 block's A fragment is four 8x8 matrices (rows 0-7 and
+        // 8-15 of the warp's 16, by k 0-7 and 8-15: 16-byte column blocks
+        // 2 k4 and 2 k4 + 1 of the half's box); lane 8 m + r addresses
+        // row r of matrix m
+        const int off =
+            srow * 128 + (((2 * k4 + (lane >> 4)) ^ (lane & 7)) << 4);
+        stsm_x4(smem_addr(hi + off), ah[0], ah[1], ah[2], ah[3]);
+        stsm_x4(smem_addr(lo + off), al[0], al[1], al[2], al[3]);
+      }
+      if (hf == 0 && t == 0) atot[u] = wtot[u];
+      mbar_arrive(&wempty[u]);
+      mbar_arrive(&bempty[s]);
+      fence_proxy_async();
+      mbar_arrive(&afull[u]);
+    }
+    return;
+  }
+
+  // the MMA warpgroup: S_in[c] leaves the accumulators as high and low
+  // bf16 pairs and goes to sout while the chunk's products run
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs));
+  float acc[64];
+  unsigned sh[32], sl[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int ic = 0; ic < a.nc; ++ic) {
+    const int s = ic % kXStages, u = ic & 1;
+    mbar_wait(&afull[u], ic >> 1 & 1);
+    const float decay = expf(atot[u]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      split_pack(acc[2 * i], acc[2 * i + 1], sh[i], sl[i]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= decay;
+    mbar_wait(&xfull[s], ic / kXStages & 1);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < kWideMaxChunk / 16; ++kk) {
+      const uint64_t dx =
+          sw128_desc(xring(s, 0) + kk * 16 * 2 * kBox, kBoxBytes, 1024);
+      const int k = kk >> 2, o = 32 * (kk & 3);
+      wgmma_ss_n128<1>(acc, sw128_desc(abuf(u, k) + o, 16, 1024), dx);
+      wgmma_ss_n128<1>(acc, sw128_desc(abuf(u, 2 + k) + o, 16, 1024), dx);
+    }
+    wgmma_commit();
+    if (ic > 0) {  // S_in[ic] (the state before this chunk) to sout
+      mbar_wait(sempty, ((ic - 1) & 1) ^ 1);  // the last one has left it
+      // n8 tiles 2 v and 2 v + 1, rows 0-7 and 8-15 of the warp's 16, are
+      // the four matrices of one stmatrix; lane 8 m + r addresses row r of
+      // matrix m
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int m = lane >> 3, row = 16 * warp + 8 * (m & 1) + (lane & 7);
+        const int nt = 2 * v + (m >> 1);  // the n8 tile, 0 .. 15
+        unsigned char* at = sout + (nt >> 3) * kSBoxBytes + row * 128 +
+                            (((nt & 7) ^ (lane & 7)) << 4);
+        stsm_x4(smem_addr(at), sh[4 * v], sh[4 * v + 1], sh[4 * v + 2],
+                sh[4 * v + 3]);
+        stsm_x4(smem_addr(at + 2 * kSBoxBytes), sl[4 * v], sl[4 * v + 1],
+                sl[4 * v + 2], sl[4 * v + 3]);
+      }
+      fence_proxy_async();
+      mbar_arrive(sfull);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&aempty[u]);
+    mbar_arrive(&xempty[s]);
+  }
+
+  float* fo = a.fin + (bhs * a.N + n0) * a.P + p0;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * tq;
+    if (n0 + row >= a.N) continue;
+    if (p0 + col < a.P) fo[(size_t)row * a.P + col] = acc[i];
+    if (p0 + col + 1 < a.P) fo[(size_t)row * a.P + col + 1] = acc[i + 1];
+  }
+}
+
+// Pass B: the output columns p0 .. p0 + kScanTP - 1 of one (chunk, head,
+// batch).  Two consumer warpgroups take 64 rows of the chunk each; one
+// thread of a producer warpgroup brings x's tile once and, per slab of
+// kWideTN state rows, c's and b's boxes and S_in[c]'s slab by TMA into a
+// ring.  Per slab each warpgroup adds c b^T (the scores of its rows
+// against the chunk's 128 steps) and c . S_in, both on wgmma with A and B
+// in shared memory.  Then y = exp(seg_i) (c . S_in) + G x, with the
+// decay-masked scores G in registers as the A operand (FA3's hand-on of
+// P), G and S_in each in a high and a low bf16 part (two products each),
+// so y keeps about 16 bits of every term as the narrow route's does.
+// Branches around a wgmma depend on the warpgroup alone, which the
+// compiler can see (chunk 0's S_in slab is zeros, multiplied all the same;
+// the first warpgroup's scores past its rows are computed and masked).
+template <class A>
+__global__ void __launch_bounds__(kScanThreads, 1)
+    ssd_wide_scan(const __grid_constant__ WideArgs a) {
+  extern __shared__ __align__(16) unsigned char wide_raw[];
+  unsigned char* sm = align1024(wide_raw);
+  const int L = a.L;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + wide_scan_tiles());
+  uint64_t* empty = full + kScanStages;
+  uint64_t* xbar = empty + kScanStages;
+  float* seg = reinterpret_cast<float*>(xbar + 1);  // log2 units
+  float* eseg = seg + 128;
+  float* tot = eseg + 128;
+  const int ptiles = (a.P + kScanTP - 1) / kScanTP;
+  const int ic = blockIdx.x / ptiles, h = blockIdx.y, bz = blockIdx.z;
+  const int p0 = blockIdx.x % ptiles * kScanTP;
   const int t0 = ic * L, rows = min(L, a.S - t0);
-  const size_t slice = (size_t)(bb * a.H + h) * a.nc + ic;
-  const float* st = a.ws + slice * a.N * a.P + p0;
+  // x's and S_in's boxes that hold columns, the rest stay zero
+  const int boxes = min(3, (a.P - p0 + kBox - 1) / kBox);
+  const bool has_s = ic > 0;
+  const int slabs = (a.N + kWideTN - 1) / kWideTN;
+  auto xbox = [&](int k) { return sm + k * kBoxBytes; };
+  auto st = [&](int s) { return sm + 3 * kBoxBytes + s * wide_scan_stage(); };
+  // S_in's boxes of stage s: k 0-2 the high part, 3-5 the low part
+  auto sbox = [&](int s, int k) {
+    return st(s) + 2 * kBoxBytes + k * kSBoxBytes;
+  };
 
-  load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h + p0, a.xs.s, t0, rows,
-            L, pw, TP, a.vx);
-  cp_async_commit();
-  chunk_cumsum(seg, static_cast<const A*>(a.la) + bb * a.as.b + h * a.as.h,
-               a.as.s, t0, rows, L);
-  // seg in log2 units from here on
-  for (int i = threadIdx.x; i < L; i += kMmaThreads) {
-    seg[i] *= kLog2e;
-    eseg[i] = exp2_approx(seg[i]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kScanStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
+  const size_t rows_l = (size_t)L * 2 * kBox;
+  for (int k = 0; k < 3; ++k)
+    zero_bytes(xbox(k), k < boxes ? rows_l : 0, kBoxBytes);
+  for (int s = 0; s < kScanStages; ++s) {
+    zero_bytes(st(s), rows_l, kBoxBytes);
+    zero_bytes(st(s) + kBoxBytes, rows_l, kBoxBytes);
+    for (int k = 0; k < 3; ++k)
+      if (!has_s || k >= boxes) {
+        zero_bytes(sbox(s, k), 0, kSBoxBytes);
+        zero_bytes(sbox(s, 3 + k), 0, kSBoxBytes);
+      }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wid = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (wid >= 8) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      // x and S_in are read here for the last time, c and b again by the
+      // chunk's other P tiles
+      const uint64_t last = l2_evict_first(), again = l2_evict_last();
+      const int slot = ((int)((size_t)bz * a.H + h) * (a.nc - 1)) + ic - 1;
+      const int pre = min(slabs, kScanStages);
+      auto load_cb = [&](int sl) {  // c's and b's boxes of a slab
+        const int s = sl % kScanStages;
+        mbar_wait(&empty[s], (sl / kScanStages & 1) ^ 1);
+        mbar_expect_tx(&full[s],
+                       2 * L * 2 * kBox +
+                           (has_s ? 2 * boxes * (int)kSBoxBytes : 0));
+        tma_load_4d(st(s), &a.mc, &full[s], sl * kWideTN, h * a.ch, t0,
+                    bz * a.cb, again);
+        tma_load_4d(st(s) + kBoxBytes, &a.mb, &full[s], sl * kWideTN,
+                    h * a.bh, t0, bz * a.bb, again);
+      };
+      auto load_s = [&](int sl) {  // the S_in slab's boxes, both parts
+        if (has_s)
+          for (int k = 0; k < 2 * boxes; ++k)
+            tma_load_3d(sbox(sl % kScanStages, k < boxes ? k : 3 + k - boxes),
+                        &a.ms, &full[sl % kScanStages],
+                        p0 + (k < boxes ? k : k - boxes) * kBox,
+                        sl * kWideTN, 2 * slot + (k >= boxes), last);
+      };
+      // the first slabs' c and b, and x, need nothing of ssd_wide_state:
+      // they are asked for before it has finished (the launch lets this
+      // kernel start while it runs), S_in only after
+      for (int sl = 0; sl < pre; ++sl) load_cb(sl);
+      mbar_expect_tx(xbar, boxes * L * 2 * kBox);
+      for (int k = 0; k < boxes; ++k)
+        tma_load_4d(xbox(k), &a.mx, xbar, p0 + k * kBox, h * a.xh, t0,
+                    bz * a.xb, last);
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      for (int sl = 0; sl < slabs; ++sl) {
+        if (sl >= pre) load_cb(sl);
+        load_s(sl);
+      }
+    }
+    return;
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp, i0 = 16 * mt;
-  const bool active = mt < L / 16;
-  const unsigned c_base = smem_addr(
-      Cs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * sn + 8 * (lane >> 4));
-  const unsigned b_base = smem_addr(
-      Bs + ((lane & 7) + 8 * (lane >> 4)) * sn + 8 * ((lane >> 3) & 1));
-  const int to = ((lane & 7) + 8 * ((lane >> 3) & 1)) * sx + 8 * (lane >> 4);
-  const unsigned x_base = smem_addr(Xs + to);
-  const unsigned sh_base = smem_addr(Sh + to), sl_base = smem_addr(Sl + to);
-  const bool v4 = a.P % 4 == 0;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = wid >> 2, warp = wid & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  if (wg == 0) {  // seg and exp(seg) of the chunk's steps, in log2 units
+    const int t = threadIdx.x;
+    const A* la = static_cast<const A*>(a.la) + bz * a.as.b + h * a.as.h;
+    const float v =
+        t < rows ? to_float(la[(long long)(t0 + t) * a.as.s]) : 0.f;
+    float total;
+    const float sg = wg_cumsum(v, tot, 2, &total) * kLog2e;
+    seg[t] = sg;
+    eseg[t] = exp2_approx(sg);
+  }
+  named_sync(1, 256);
 
-  float acc[PT][4], s[2 * JT][4];
+  float yacc[96], sacc[64];
 #pragma unroll
-  for (int n = 0; n < PT; ++n)
+  for (int i = 0; i < 96; ++i) yacc[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+  for (int sl = 0; sl < slabs; ++sl) {
+    const int s = sl % kScanStages;
+    mbar_wait(&full[s], sl / kScanStages & 1);
+    const unsigned char* cs = st(s) + wg * 64 * 2 * kBox;
+    wgmma_fence();
+    fence_regs(sacc);
+    fence_regs(yacc);
 #pragma unroll
-  for (int j = 0; j < 2 * JT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int kk = 0; kk < kWideTN / 16; ++kk) {
+      const uint64_t dc = sw128_desc(cs + 32 * kk, 16, 1024);
+      wgmma_ss_n128<0>(sacc, dc,
+                       sw128_desc(st(s) + kBoxBytes + 32 * kk, 16, 1024));
+      wgmma_ss_n192<1>(yacc, dc,
+                       sw128_desc(sbox(s, 0) + kk * 16 * 2 * kBox,
+                                  kSBoxBytes, 1024));
+      wgmma_ss_n192<1>(yacc, dc,
+                       sw128_desc(sbox(s, 3) + kk * 16 * 2 * kBox,
+                                  kSBoxBytes, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(yacc);
+    mbar_arrive(&empty[s]);
+  }
+  mbar_wait(xbar, 0);
 
-  for (int n0 = 0; n0 < a.N; n0 += kWideN) {
-    const int nw = min(kWideN, a.N - n0);
-    __syncthreads();  // the previous slab's readers are done
-    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h + n0, a.bs.s, t0, rows,
-              L, nw, kWideN, a.vb);
-    load_rows(Cs, sn, a.c + bb * a.cs.b + h * a.cs.h + n0, a.cs.s, t0, rows,
-              L, nw, kWideN, a.vc);
-    cp_async_commit();
-    // the S_in rows n0 .. n0 + nw - 1 of the P tile, as high and low parts
-    // (zero past N and past P)
-    if (v4) {
-      for (int idx = threadIdx.x; idx < kWideN * TP / 4; idx += kMmaThreads) {
-        const int n = idx / (TP / 4), p = 4 * (idx % (TP / 4));
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n < nw && p < pw)
-          v = __ldg(reinterpret_cast<const float4*>(
-              st + (size_t)(n0 + n) * a.P + p));
-        unsigned hi[2], lw[2];
-        split_pack(v.x, v.y, hi[0], lw[0]);
-        split_pack(v.z, v.w, hi[1], lw[1]);
-        *reinterpret_cast<uint2*>(Sh + n * sx + p) = make_uint2(hi[0], hi[1]);
-        *reinterpret_cast<uint2*>(Sl + n * sx + p) = make_uint2(lw[0], lw[1]);
+  const int r0 = 64 * wg + 16 * warp + g;  // rows r0 and r0 + 8
+  const float si[2] = {seg[r0], seg[r0 + 8]};
+  const float ei[2] = {eseg[r0], eseg[r0 + 8]};
+#pragma unroll
+  for (int i = 0; i < 96; ++i) yacc[i] *= ei[(i >> 1) & 1];
+  // G = scores exp(seg_i - seg_j) for j <= i, else 0, as A fragments:
+  // the C fragments of n8 tiles 2 kk and 2 kk + 1 are k16 step kk's A
+  // (the k16 blocks wholly above the warp's rows are zeros, and those
+  // above the warpgroup's are left out of the product)
+  unsigned ah[8][4], al[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    float gv[8] = {};
+    if (16 * kk <= 64 * wg + 16 * warp + 15) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = 16 * kk + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const int i = r0 + 8 * ((e >> 1) & 1);
+        if (j <= i)
+          gv[e] = sacc[8 * kk + e] * exp2_approx(si[(e >> 1) & 1] - seg[j]);
       }
+    }
+    split_pack(gv[0], gv[1], ah[kk][0], al[kk][0]);
+    split_pack(gv[2], gv[3], ah[kk][1], al[kk][1]);
+    split_pack(gv[4], gv[5], ah[kk][2], al[kk][2]);
+    split_pack(gv[6], gv[7], ah[kk][3], al[kk][3]);
+  }
+  wgmma_fence();
+  fence_regs(yacc);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk >= 4 * (wg + 1)) break;
+    const uint64_t dx = sw128_desc(xbox(0) + kk * 16 * 2 * kBox, kBoxBytes,
+                                   1024);
+    wgmma_rs_n192<1>(yacc, ah[kk], dx);
+    wgmma_rs_n192<1>(yacc, al[kk], dx);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(yacc);
+
+  bf16* yb = a.y + bz * a.ys.b + h * a.ys.h + p0;
+  const bool pairs = (a.P & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 96; i += 2) {
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * tq;
+    if (row >= rows) continue;
+    bf16* yrow = yb + (long long)(t0 + row) * a.ys.s;
+    if (pairs && p0 + col + 1 < a.P) {
+      *reinterpret_cast<unsigned*>(yrow + col) =
+          pack_bf16(yacc[i], yacc[i + 1]);
     } else {
-      for (int idx = threadIdx.x; idx < kWideN * TP / 2; idx += kMmaThreads) {
-        const int n = idx / (TP / 2), p = 2 * (idx % (TP / 2));
-        const bool in = n < nw;
-        const float v0 = in && p < pw ? st[(size_t)(n0 + n) * a.P + p] : 0.f;
-        const float v1 =
-            in && p + 1 < pw ? st[(size_t)(n0 + n) * a.P + p + 1] : 0.f;
-        unsigned hi, lw;
-        split_pack(v0, v1, hi, lw);
-        *reinterpret_cast<unsigned*>(Sh + n * sx + p) = hi;
-        *reinterpret_cast<unsigned*>(Sl + n * sx + p) = lw;
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (!active) continue;
-    unsigned cf[kWideN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kWideN / 16; ++kk)
-      ldsm_x4(c_base + (i0 * sn + kk * 16) * sizeof(bf16), cf[kk]);
-    // inter-chunk: c_i . S_in over this slab
-#pragma unroll
-    for (int kk = 0; kk < kWideN / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < PT; n += 2) {
-        unsigned sh[4], sl[4];
-        const unsigned off = (kk * 16 * sx + n * 8) * sizeof(bf16);
-        ldsm_x4_trans(sh_base + off, sh);
-        ldsm_x4_trans(sl_base + off, sl);
-        mma_bf16(acc[n], cf[kk], sh[0], sh[1]);
-        mma_bf16(acc[n], cf[kk], sl[0], sl[1]);
-        mma_bf16(acc[n + 1], cf[kk], sh[2], sh[3]);
-        mma_bf16(acc[n + 1], cf[kk], sl[2], sl[3]);
-      }
-    }
-    // scores: c_i . b_j over this slab, for the j tiles at or below the
-    // diagonal
-#pragma unroll
-    for (int jt = 0; jt < JT; ++jt) {
-      if (jt > mt) continue;
-#pragma unroll
-      for (int kk = 0; kk < kWideN / 16; ++kk) {
-        unsigned bfr[4];
-        ldsm_x4(b_base + (jt * 16 * sn + kk * 16) * sizeof(bf16), bfr);
-        mma_bf16(s[2 * jt], cf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * jt + 1], cf[kk], bfr[2], bfr[3]);
-      }
-    }
-  }
-  if (!active) return;
-
-  const float seg_i[2] = {seg[i0 + g], seg[i0 + g + 8]};  // log2 units
-  const float e0 = eseg[i0 + g], e1 = eseg[i0 + g + 8];
-#pragma unroll
-  for (int n = 0; n < PT; ++n) {
-    acc[n][0] *= e0;
-    acc[n][1] *= e0;
-    acc[n][2] *= e1;
-    acc[n][3] *= e1;
-  }
-  // intra-chunk: the decay-masked scores times x
-#pragma unroll
-  for (int jt = 0; jt < JT; ++jt) {
-    if (jt > mt) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int j0 = 16 * jt + 8 * j + 2 * tq;
-      const float seg_j[2] = {seg[j0], seg[j0 + 1]};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + g + 8 * (e >> 1);
-        s[2 * jt + j][e] =
-            j0 + (e & 1) <= i
-                ? s[2 * jt + j][e] * exp2_approx(seg_i[e >> 1] - seg_j[e & 1])
-                : 0.f;
-      }
-    }
-    unsigned ah[4], al[4];
-    split_pack(s[2 * jt][0], s[2 * jt][1], ah[0], al[0]);
-    split_pack(s[2 * jt][2], s[2 * jt][3], ah[1], al[1]);
-    split_pack(s[2 * jt + 1][0], s[2 * jt + 1][1], ah[2], al[2]);
-    split_pack(s[2 * jt + 1][2], s[2 * jt + 1][3], ah[3], al[3]);
-#pragma unroll
-    for (int n = 0; n < PT; n += 2) {
-      unsigned xf[4];
-      ldsm_x4_trans(x_base + (jt * 16 * sx + n * 8) * sizeof(bf16), xf);
-      mma_bf16(acc[n], ah, xf[0], xf[1]);
-      mma_bf16(acc[n], al, xf[0], xf[1]);
-      mma_bf16(acc[n + 1], ah, xf[2], xf[3]);
-      mma_bf16(acc[n + 1], al, xf[2], xf[3]);
-    }
-  }
-
-  bf16* yb = a.y + bb * a.ys.b + h * a.ys.h + p0;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int i = i0 + g + 8 * rr;
-    if (i >= rows) continue;
-    bf16* yrow = yb + (long long)(t0 + i) * a.ys.s;
-#pragma unroll
-    for (int n = 0; n < PT; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col + 1 < pw && (a.P & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
-            __floats2bfloat162_rn(acc[n][2 * rr], acc[n][2 * rr + 1]);
-      } else {
-        if (col < pw) yrow[col] = __float2bfloat16(acc[n][2 * rr]);
-        if (col + 1 < pw)
-          yrow[col + 1] = __float2bfloat16(acc[n][2 * rr + 1]);
-      }
+      if (p0 + col < a.P) yrow[col] = __float2bfloat16(yacc[i]);
+      if (p0 + col + 1 < a.P) yrow[col + 1] = __float2bfloat16(yacc[i + 1]);
     }
   }
 }
@@ -944,30 +1364,21 @@ inline bool same(Strides u, Strides v) {
   return u.b == v.b && u.s == v.s && u.h == v.h;
 }
 
-// the three passes; Wide picks pass 3's wide instance
-template <class A, int PT, bool Wide = false>
+// the three passes of the narrow route
+template <class A, int PT>
 int launch_chunked(const ChunkArgs& a, int B, float* fin,
                    cudaStream_t stream) {
-  void (*scan)(const ChunkArgs);
-  size_t s3;
-  if constexpr (Wide) {
-    scan = ssd_chunk_scan_wide<A, PT>;
-    s3 = wide_layout(a.L).total;
-  } else {
-    scan = ssd_chunk_scan<A, PT>;
-    s3 = scan_layout(a.L, a.Pp, a.Np, a.bx, a.cb).total;
-  }
-  const size_t s1 = state_layout(a.L, a.tp, a.tn, a.bx).total;
+  const size_t s1 = state_layout(a.L, a.Pp, a.Np, a.bx).total;
+  const size_t s3 = scan_layout(a.L, a.Pp, a.Np, a.bx, a.cb).total;
   cudaError_t e = cudaFuncSetAttribute(
       ssd_chunk_state<A, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s1);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(ssd_chunk_scan<A, PT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)s3);
   if (e != cudaSuccess) return (int)e;
-  ssd_chunk_state<A, PT>
-      <<<dim3(a.nc * a.ptiles * a.ntiles, a.H, B), kMmaThreads, s1, stream>>>(
-          a);
+  ssd_chunk_state<A, PT><<<dim3(a.nc, a.H, B), kMmaThreads, s1, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int NP = a.N * a.P;
@@ -976,8 +1387,8 @@ int launch_chunked(const ChunkArgs& a, int B, float* fin,
                                               NP);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(Wide ? a.nc * a.ptiles : a.nc, a.H, B);
-  scan<<<grid, kMmaThreads, s3, stream>>>(a);
+  ssd_chunk_scan<A, PT>
+      <<<dim3(a.nc, a.H, B), kMmaThreads, s3, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -986,8 +1397,6 @@ int launch_chunked(const ChunkArgs& a, int B, float* fin,
 template <class A>
 int launch_chunked_p(const ChunkArgs& a, int B, float* fin,
                      cudaStream_t stream) {
-  if (wide_route(a.P, a.N))
-    return launch_chunked<A, kWidePT, true>(a, B, fin, stream);
   if (a.Pp <= 32) return launch_chunked<A, 4>(a, B, fin, stream);
   if (a.Pp <= 64) return launch_chunked<A, 8>(a, B, fin, stream);
   if (a.Pp <= 80) return launch_chunked<A, 10>(a, B, fin, stream);
@@ -1022,16 +1431,142 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
   a.vx = rows_vec(x, a.xs, P);
   a.vb = rows_vec(bm, a.bs, N);
   a.vc = rows_vec(cm, a.cs, N);
-  const bool wide = wide_route(P, N);
-  a.tp = wide ? 8 * kWidePT : a.Pp;
-  a.tn = wide ? kWideN : a.Np;
-  a.ptiles = (a.Pp + a.tp - 1) / a.tp;
-  a.ntiles = (a.Np + a.tn - 1) / a.tn;
-  // the wide route copies b and c slab by slab from their own pointers
-  a.bx = !wide && bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
-  a.cb = !wide && cm == bm && same(a.cs, a.bs);
+  a.bx = bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
+  a.cb = cm == bm && same(a.cs, a.bs);
   return la_dtype == kFloat32 ? launch_chunked_p<float>(a, B, fin, stream)
                               : launch_chunked_p<bf16>(a, B, fin, stream);
+}
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (the
+// library links the runtime only)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 map of `rank` dimensions (at most 4) with 128-byte swizzled boxes
+bool encode_map(CUtensorMap* m, const void* p, cuuint32_t rank,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                const cuuint32_t* box) {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode_tiled() &&
+         encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(p), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a map of a (B, S, H, width) bf16 tensor with element strides st, boxes
+// of kBox columns by L steps at (column, head, step, batch); a head or
+// batch stride of 0 (a broadcast view) becomes a map of one head or batch
+// that every CTA reads at coordinate 0 (*hm, *bm = 0)
+bool encode_rows(CUtensorMap* m, const void* p, int B, int S, int H,
+                 int width, Strides st, int L, int* hm, int* bm) {
+  const cuuint64_t step = 2 * (cuuint64_t)st.s;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, st.h ? (cuuint64_t)H : 1,
+                              (cuuint64_t)S, st.b ? (cuuint64_t)B : 1};
+  const cuuint64_t strides[3] = {st.h ? 2 * (cuuint64_t)st.h : step, step,
+                                 st.b ? 2 * (cuuint64_t)st.b : step};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)L, 1};
+  *hm = st.h != 0;
+  *bm = st.b != 0;
+  return encode_map(m, p, 4, dims, strides, box);
+}
+
+// the wide route's two passes: the tensor maps, then pass A over the
+// (state tile, head, batch) grid and pass B over (chunk, P tile, head,
+// batch); ws holds B H (nc - 1) 2 N Pw bf16
+template <class A>
+int launch_wide(WideArgs& a, const void* x, const void* bm, const void* cm,
+                int B, const long long* st, cudaStream_t stream) {
+  const Strides xs{st[0], st[1], st[2]}, bs{st[6], st[7], st[8]},
+      cs{st[9], st[10], st[11]};
+  if (!encode_rows(&a.mx, x, B, a.S, a.H, a.P, xs, a.L, &a.xh, &a.xb) ||
+      !encode_rows(&a.mb, bm, B, a.S, a.H, a.N, bs, a.L, &a.bh, &a.bb) ||
+      !encode_rows(&a.mc, cm, B, a.S, a.H, a.N, cs, a.L, &a.ch, &a.cb))
+    return (int)cudaErrorInvalidValue;
+  if (a.nc > 1) {  // a slot per part of each S_in
+    const cuuint64_t dims[3] = {(cuuint64_t)a.P, (cuuint64_t)a.N,
+                                (cuuint64_t)B * a.H * (a.nc - 1) * 2};
+    const cuuint64_t strides[2] = {2 * (cuuint64_t)a.Pw,
+                                   2 * (cuuint64_t)a.Pw * a.N};
+    const cuuint32_t box[3] = {kBox, kWideTN, 1};
+    if (!encode_map(&a.ms, a.ws, 3, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_wide_state<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWideStateSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_wide_scan<A>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kWideScanSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = (a.N + kWideTN - 1) / kWideTN;
+  ssd_wide_state<A><<<dim3(ntiles * ((a.P + kStateTP - 1) / kStateTP), a.H,
+                           B),
+                      kStateThreads, kWideStateSmem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // programmatic dependent launch: pass B's CTAs may start once every CTA
+  // of pass A has started, and wait in griddepcontrol.wait for its end
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nc * ((a.P + kScanTP - 1) / kScanTP), a.H, B);
+  cfg.blockDim = dim3(kScanThreads);
+  cfg.dynamicSmemBytes = kWideScanSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssd_wide_scan<A>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int launch_wide_all(const void* x, const void* la, const void* bm,
+                    const void* cm, void* y, float* fin, void* ws,
+                    int la_dtype, int B, int S, int H, int P, int N,
+                    const long long* st, int L, cudaStream_t stream) {
+  WideArgs a{};
+  a.la = la;
+  a.y = static_cast<bf16*>(y);
+  a.ws = static_cast<bf16*>(ws);
+  a.fin = fin;
+  a.S = S;
+  a.H = H;
+  a.P = P;
+  a.N = N;
+  a.L = L;
+  a.nc = (S + L - 1) / L;
+  a.Pw = (P + 7) / 8 * 8;
+  a.as = Strides{st[3], st[4], st[5]};
+  a.ys = Strides{st[12], st[13], st[14]};
+  return la_dtype == kFloat32
+             ? launch_wide<float>(a, x, bm, cm, B, st, stream)
+             : launch_wide<bf16>(a, x, bm, cm, B, st, stream);
 }
 
 }  // namespace
@@ -1043,9 +1578,13 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
 // the dtype code `la_dtype`.  strides: 15 element strides, (batch,
 // sequence, head) for x, log_a, b, c, y in that order; y is contiguous.
 // chunk is the chunk length L: for float32 at least 1; for bfloat16 a
-// multiple of 16 up to 256 with P <= 128 and N <= 64, or up to 128 with P
-// and N up to 384 (the wide route), and workspace holds
-// B * H * nc * (N * P + 1) floats, nc = ceil(S / L) (float32 reads none).
+// multiple of 16 up to 256 with P <= 128 and N <= 64, where workspace
+// holds B * H * nc * (N * P + 1) floats, nc = ceil(S / L), or up to 128
+// with P and N up to 384 (the wide route), where it holds
+// B * H * (nc - 1) * 2 * N * Pw bf16, Pw = P rounded up to 8, and x, b, c
+// start at 16-byte boundaries with strides that are multiples of 8
+// elements or 0 (head and batch only), as TMA reads them (float32 reads
+// no workspace).
 // smem_bytes is the caller's footprint figure and must equal this file's.
 // Returns a cudaError_t code (0 on success).
 extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
@@ -1074,6 +1613,9 @@ extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
       (wide_route(P, N) && L > kWideMaxChunk) ||
       (long long)chunked_smem(L, P, N) != smem_bytes)
     return (int)cudaErrorInvalidValue;
+  if (wide_route(P, N))
+    return launch_wide_all(x, log_a, b, c, y, fin, workspace, la_dtype, B, S,
+                           H, P, N, strides, L, s);
   return launch_chunked_all(x, log_a, b, c, y, fin,
                             static_cast<float*>(workspace), la_dtype, B, S, H,
                             P, N, strides, L, s);

@@ -1,13 +1,29 @@
 """Mamba-2 SSD chunked scan: the port of the TPU kernel to Hopper.
 
-:func:`ssd_scan` launches ``csrc/ssd_scan.cu`` for CUDA tensors, the
-chunk-parallel tensor-core passes for bf16 x and the SIMT kernel for fp32,
-and takes the plain PyTorch version (:func:`.ref.ssd_ref`) for tensors on
-the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it launches a
-kernel or raises; it never falls back.  ``launches`` counts calls that
-launched the kernel: the bf16 route's three passes count once;
-``wide_launches`` counts those of them that took the wide route (P > 128
-or N > 64, the mLSTM's 384-wide heads).
+Replaces ``src/repro/kernels/ssd_scan.py`` (``_kernel`` :25, the wrapper
+:71, ``pl.pallas_call`` :93).  :func:`ssd_scan` launches
+``csrc/ssd_scan.cu`` for CUDA tensors and takes the plain PyTorch version
+(:func:`.ref.ssd_ref`) for tensors on the CPU or on ``meta`` (shape
+tracing).  On a CUDA tensor it launches a kernel or raises; it never falls
+back.  Three routes:
+
+* bf16 at P <= 128 and N <= 64 (Mamba-2's heads): three chunk-parallel
+  ``mma.sync`` passes, the chunk states handed on through an fp32
+  workspace that ``ssd_state_pass`` chains;
+* bf16 at wider heads (up to 384, chunk <= 128: the mLSTM's): two
+  warp-specialised passes on ``wgmma`` fed by TMA.  ``ssd_wide_state``
+  walks the chunks in order per 64 x 128 tile of the state, the running
+  state in registers as the TPU kernel keeps it in VMEM, and writes each
+  chunk's incoming state once, as a high and a low bf16 part (the bytes
+  of fp32, and about its precision); ``ssd_wide_scan`` reads it once per
+  (chunk, 192-wide P tile) beside c, b and x, so the states cross memory
+  twice.  It is bound by bytes: x, b, c, y and the final state, 27.6 MB
+  (8.2 us at 3.35 TB/s) at (1, 2048, 4, 384), plus the 35.4 MB the
+  states take each way;
+* fp32: the SIMT kernel, one CTA per (batch, head) walking the chunks.
+
+``launches`` counts calls that launched a kernel (a route's passes count
+once); ``wide_launches`` counts those of them that took the wide route.
 
 The kernel has no backward.  When gradients are asked for (grad mode on
 and an input that requires grad), a CUDA call goes through
@@ -38,22 +54,44 @@ NARROW_P, NARROW_N = 128, 64
 MAX_P = MAX_N = 384
 MAX_WIDE_CHUNK = 128
 CHUNK_ALIGN = 16        # bf16 route: a chunk is whole m16 tiles
+# the wide route (csrc/ssd_scan.cu): TMA boxes of WIDE_BOX bf16 columns
+# (one 128-byte swizzled row) by MAX_WIDE_CHUNK rows, S_in boxes of
+# WIDE_BOX rows; ssd_wide_state's state tiles WIDE_BOX rows by
+# STATE_TP columns, ssd_wide_scan's output tiles SCAN_TP columns; the ring
+# stages of ssd_wide_state's b and x and of ssd_wide_scan; the shared
+# memory kept for barriers, weights and seg; the slack that aligns the
+# tiles to 1024 bytes
+WIDE_BOX = 64
+STATE_TP, SCAN_TP = 2 * WIDE_BOX, 3 * WIDE_BOX
+STATE_B_STAGES, STATE_X_STAGES, SCAN_STAGES = 3, 2, 2
+WIDE_SMALL, WIDE_ALIGN = 2048, 1024
 
 
 def wide(P: int, N: int) -> bool:
-    """Whether a bf16 launch at widths P, N takes the wide route (pass 1
-    tiled over the state, pass 3 ``ssd_chunk_scan_wide`` streaming N)."""
+    """Whether a bf16 launch at widths P, N takes the wide route
+    (``ssd_wide_state`` then ``ssd_wide_scan``, on wgmma)."""
     return P > NARROW_P or N > NARROW_N
 
 
 def mma_tiles(P: int, N: int = 0) -> int:
     """The n8 tiles of P the bf16 instance a launch at widths ``P``, ``N``
-    runs holds (``launch_chunked_p`` in ``csrc/ssd_scan.cu``): the wide
-    route's P tiles are 128 wide."""
+    runs holds (``launch_chunked_p`` in ``csrc/ssd_scan.cu``); on the wide
+    route those of ``ssd_wide_scan``'s output tile, fixed by its code."""
     Pp = _round16(P)
     if wide(P, N):
-        return 16
+        return SCAN_TP // 8
     return 4 if Pp <= 32 else 8 if Pp <= 64 else 10 if Pp <= 80 else 16
+
+
+# the bf16 tensor-core passes by route: mma.sync (SASS HMMA) on the narrow
+# one, wgmma (SASS HGMMA) on the wide one
+NARROW_PASSES = ("ssd_chunk_state", "ssd_chunk_scan")
+WIDE_PASSES = ("ssd_wide_state", "ssd_wide_scan")
+
+
+def mma_opcode(pass_name: str) -> str:
+    """The SASS opcode of a tensor-core pass's products."""
+    return "HGMMA" if pass_name in WIDE_PASSES else "HMMA"
 
 
 def mma_passes(per_kernel: dict, P: int | None = None,
@@ -61,19 +99,20 @@ def mma_passes(per_kernel: dict, P: int | None = None,
                N: int = 0) -> dict[str, list]:
     """A per-kernel report of ``libssd_scan.so`` (mangled name -> value, as
     :func:`._build.ptxas_report` gives it) reduced to the bf16 route's
-    tensor-core passes, ``ssd_chunk_state``, ``ssd_chunk_scan`` and
-    ``ssd_chunk_scan_wide``, each with its instances (per ``log_a`` dtype
-    and P's n8 tiles), or only the instances a launch at widths ``P``,
-    ``N`` with ``log_a`` in ``la_dtype`` runs."""
+    tensor-core passes, :data:`NARROW_PASSES` and :data:`WIDE_PASSES`,
+    each with its instances (per ``log_a`` dtype and P's n8 tiles), or
+    only the instances a launch at widths ``P``, ``N`` with ``log_a`` in
+    ``la_dtype`` runs."""
     la = {None: r"\w+?", torch.float32: "f",
           torch.bfloat16: "13__nv_bfloat16"}[la_dtype]
-    pt = r"\d+" if P is None else str(mma_tiles(P, N))
-    scan = "ssd_chunk_scan" if P is None else \
-        "ssd_chunk_scan_wide" if wide(P, N) else "ssd_chunk_scan(?!_wide)"
+    names = NARROW_PASSES + WIDE_PASSES if P is None else \
+        WIDE_PASSES if wide(P, N) else NARROW_PASSES
     out: dict[str, list] = {}
     for name, value in per_kernel.items():
-        if m := re.search(rf"(ssd_chunk_state|{scan}\w*?)I{la}Li{pt}E",
-                          name):
+        # the narrow instances also by P's n8 tiles (Li<tiles>E)
+        m = re.search(rf"\d({'|'.join(names)})I{la}(?:Li(\d+))?E", name)
+        if m and (P is None or m.group(1) in WIDE_PASSES or
+                  m.group(2) == str(mma_tiles(P, N))):
             out.setdefault(m.group(1), []).append(value)
     return out
 
@@ -95,22 +134,38 @@ def smem_parts(params: dict, shapes, dtype: torch.dtype) -> dict[str, int]:
     """Dynamic shared memory of one CTA for ``params`` = {chunk} at
     ``shapes`` = (x shape, b shape) with x in ``dtype``, term by term;
     mirrors ``csrc/ssd_scan.cu``: in bf16 ``chunked_smem``, the terms of
-    the larger of the chunk-state and chunk-scan passes (bf16 rows padded
-    to a multiple of 16 plus 8; on the wide route a 64 x 128 state tile in
-    pass 1, and in pass 3 a 128-wide P tile of x and S_in slabs of 64
-    rows), in fp32 ``ssd_smem_floats``."""
+    the larger of its passes (narrow: chunk-state and chunk-scan, bf16 rows
+    padded to a multiple of 16 plus 8; wide, whatever the chunk:
+    ``ssd_wide_state``'s rings of b's and x's boxes, its two staged
+    (b w)^T tiles and the S_in tile it stores, ``ssd_wide_scan``'s x boxes
+    and ring of c, b and S_in boxes, S_in in a high and a low bf16 part
+    in both; a box is 128 rows of 128 bytes, 64
+    rows for a 64-row tile; the two passes take the same bytes, and the
+    terms are ``ssd_wide_state``'s), in fp32 ``ssd_smem_floats``."""
     x_shape, b_shape = shapes[0], shapes[1]
     S, P, N = x_shape[1], x_shape[3], b_shape[3]
     L = chunk_length(params["chunk"], S, dtype)
+    if dtype == torch.bfloat16 and wide(P, N):
+        box = MAX_WIDE_CHUNK * 2 * WIDE_BOX
+        sbox = WIDE_BOX * 2 * WIDE_BOX
+        state = {"state b": STATE_B_STAGES * box,
+                 "state x": STATE_X_STAGES * 2 * box,
+                 "state (b w)^T, high and low, twice": 2 * 4 * sbox,
+                 "state S_in out, high and low": 2 * 2 * sbox,
+                 "state barriers, weights": WIDE_SMALL,
+                 "state alignment": WIDE_ALIGN}
+        scan = {"scan x": 3 * box, "scan c": SCAN_STAGES * box,
+                "scan b": SCAN_STAGES * box,
+                "scan S_in, high and low": SCAN_STAGES * 2 * 3 * sbox,
+                "scan barriers, seg": WIDE_SMALL,
+                "scan alignment": WIDE_ALIGN}
+        return max(state, scan, key=lambda p: sum(p.values()))
     if dtype == torch.bfloat16:
-        if wide(P, N):
-            Pp, Np, slab = NARROW_P, NARROW_N, NARROW_N
-        else:
-            Pp, Np, slab = _round16(P), _round16(N), _round16(N)
+        Pp, Np = _round16(P), _round16(N)
         sx, sn = Pp + 8, Np + 8
         state = {"state x": 2 * L * sx, "state seg": 4 * L,
                  "state b": 2 * L * sn}
-        scan = {"scan x": 2 * L * sx, "scan S_in": 4 * slab * sx,
+        scan = {"scan x": 2 * L * sx, "scan S_in": 4 * Np * sx,
                 "scan seg": 8 * L, "scan b": 2 * L * sn,
                 "scan c": 2 * L * sn}
         return max(state, scan, key=lambda p: sum(p.values()))
@@ -152,16 +207,37 @@ def check_launch(params: dict, shapes, dtype: torch.dtype,
 
 
 def workspace_bytes(params: dict, shapes, dtype: torch.dtype) -> int:
-    """Device memory of the fp32 workspace a call allocates: in bf16 the
-    (B, H, nc, N, P) chunk states and (B, H, nc) decays the passes hand on;
-    the fp32 route needs none."""
+    """Device memory of the workspace a call allocates: on the narrow bf16
+    route the (B, H, nc, N, P) fp32 chunk states and (B, H, nc) decays the
+    passes hand on; on the wide one the states that enter chunks 1 ..
+    nc - 1 as high and low bf16 parts, (B, H, nc - 1, 2, N, Pw) (Pw: P
+    rounded up to 8, TMA's 16-byte rows); the fp32 route needs none."""
     if dtype != torch.bfloat16:
         return 0
     x_shape, b_shape = shapes[0], shapes[1]
     B, S, H, P = x_shape
     N = b_shape[3]
     nc = -(-S // chunk_length(params["chunk"], S, dtype))
+    if wide(P, N):
+        return 2 * B * H * (nc - 1) * 2 * N * -(-P // 8) * 8
     return 4 * B * H * nc * (N * P + 1)
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, H, width) in bf16 as the wide route's TMA reads it: a
+    16-byte aligned start and strides of multiples of 8 elements (0 for a
+    broadcast head or batch), the last axis contiguous; else a copy into
+    rows padded to a multiple of 8, viewed at ``t``'s width."""
+    st = t.stride()
+    if st[3] == 1 and t.data_ptr() % 16 == 0 and st[1] > 0 and \
+            all(s % 8 == 0 for s in st[:3]):
+        return t
+    width = t.shape[3]
+    buf = torch.empty((*t.shape[:3], -(-width // 8) * 8), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., :width]
+    view.copy_(t)
+    return view
 
 
 def ssd_scan(x, log_a, b, c, *, chunk=128):
@@ -237,7 +313,12 @@ def _launch(x, log_a, b, c, chunk):
     L = chunk_length(chunk, S, x.dtype)
     params = {"chunk": L}
     nbytes = smem_bytes(params, shapes, x.dtype)
-    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
+    is_wide = x.dtype == torch.bfloat16 and wide(P, N)
+    if is_wide:
+        x, b, c = (tma_ready(t) for t in (x, b, c))
+    else:
+        x, b, c = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (x, b, c))
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     fin = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     ws = torch.empty(workspace_bytes(params, shapes, x.dtype) // 4,
@@ -250,5 +331,5 @@ def _launch(x, log_a, b, c, chunk):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
     launches += 1
-    wide_launches += x.dtype == torch.bfloat16 and wide(P, N)
+    wide_launches += is_wide
     return y, fin

@@ -88,6 +88,18 @@ def test_smem_flag_overrides_the_limit(capsys):
     assert "SCN202 error" in capsys.readouterr().out
 
 
+def test_ssd_wide_footprint_fits_the_limit_to_the_byte(capsys):
+    """The mLSTM's wide passes take 216,064 B of shared memory at every
+    chunk: a limit one byte smaller prunes all four candidates, that limit
+    keeps them."""
+    assert tmain(["--device", "meta", "--smem", "216063", "kernels"]) == 0
+    assert "ssd_scan at xlstm-125m mLSTM (1, 2048, 4, 384): 0 kept / 4 " \
+           "pruned" in capsys.readouterr().out
+    assert tmain(["--device", "meta", "--smem", "216064", "kernels"]) == 0
+    assert "ssd_scan at xlstm-125m mLSTM (1, 2048, 4, 384): 4 kept / 0 " \
+           "pruned" in capsys.readouterr().out
+
+
 def test_cost_keyword_requires_a_path():
     with pytest.raises(SystemExit):
         tmain(["--device", "cpu", "cost"])

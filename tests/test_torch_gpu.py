@@ -215,12 +215,21 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
     (2, 300, 2, 200, 136, 64),                  # ragged tiles of P and N
     (1, 257, 2, 48, 96, 128),                   # wide by N alone
     (1, 100, 2, 160, 32, 32),                   # wide by P alone
+    (1, 8192, 4, 384, 384, 128),                # 64 chunks
+    (8, 512, 4, 384, 384, 128),                 # the train path's shape
+    (2, 4096, 4, 384, 384, 128),                # 256 (batch, head, chunk)
+    (1, 2000, 4, 384, 384, 128),                # a ragged last chunk
+    (2, 300, 2, 196, 72, 64),                   # P not a multiple of 8
+    (1, 1, 2, 200, 136, 128),                   # S = 1
 ])
 @pytest.mark.parametrize("la_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_bf16_wide_route_matches_plain(cuda, B, S, H, P, N, chunk,
                                                 la_dtype):
-    """P > 128 or N > 64: pass 1 tiled over the state, pass 3 streaming N
-    in slabs of 64 over P tiles of 128."""
+    """P > 128 or N > 64: ssd_wide_state walks the chunks per 64 x 128
+    state tile, ssd_wide_scan streams N in slabs of 64 over P tiles of
+    128; more (batch, head, chunk) work than the card has SMs, many
+    chunks, a last chunk cut short and rows TMA cannot read as they are
+    (P = 196) included."""
     rng = np.random.default_rng(12)
     x = _randn(rng, (B, S, H, P), torch.bfloat16, cuda)
     log_a = -torch.nn.functional.softplus(
@@ -234,6 +243,77 @@ def test_ssd_scan_bf16_wide_route_matches_plain(cuda, B, S, H, P, N, chunk,
     assert ssd_mod.launches == before + 1
     y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
                              chunk=chunk)
+    _close(y, y_ref, SSD_TOL[torch.bfloat16])
+    _close(fin, fin_ref, SSD_TOL[torch.float32])
+
+
+def test_ssd_scan_bf16_wide_route_takes_strided_and_broadcast_b_c(cuda):
+    """The wide route reads b and c through TMA maps of their own strides:
+    b a strided view (the first 384 of 768 columns), c shared by the heads
+    and then by the batch (stride-0 views), each against the plain
+    version."""
+    rng = np.random.default_rng(14)
+    B, S, H, P = 2, 640, 4, 384
+    x = _randn(rng, (B, S, H, P), torch.bfloat16, cuda)
+    la = -torch.nn.functional.softplus(
+        _randn(rng, (B, S, H), torch.float32, cuda))
+    wide_b = (_randn(rng, (B, S, H, 2 * P), torch.float32, cuda) / P ** 0.5
+              ).to(torch.bfloat16)
+    b = wide_b[..., :P]
+    c_head = _randn(rng, (B, S, 1, P), torch.bfloat16, cuda).expand(
+        B, S, H, P)
+    c_batch = _randn(rng, (1, S, H, P), torch.bfloat16, cuda).expand(
+        B, S, H, P)
+    for c in (c_head, c_batch):
+        assert 0 in c.stride()
+        before = ssd_mod.wide_launches
+        y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=128)
+        torch.cuda.synchronize()
+        assert ssd_mod.wide_launches == before + 1
+        y_ref, fin_ref = ssd_ref(x.float(), la, b.float(), c.float(),
+                                 chunk=128)
+        _close(y, y_ref, SSD_TOL[torch.bfloat16])
+        _close(fin, fin_ref, SSD_TOL[torch.float32])
+
+
+def test_ssd_scan_bf16_wide_route_is_bitwise_repeatable(cuda):
+    """Two calls on the same inputs give the same bits: no atomics, the
+    states handed on in a fixed order."""
+    rng = np.random.default_rng(15)
+    x = _randn(rng, (1, 2048, 4, 384), torch.bfloat16, cuda)
+    b = (_randn(rng, (1, 2048, 4, 384), torch.float32, cuda) / 384 ** 0.5
+         ).to(torch.bfloat16)
+    c = _randn(rng, (1, 2048, 4, 384), torch.bfloat16, cuda)
+    la = torch.nn.functional.logsigmoid(
+        _randn(rng, (1, 2048, 4), torch.float32, cuda))
+    y1, fin1 = ssd_mod.ssd_scan(x, la, b, c, chunk=128)
+    y2, fin2 = ssd_mod.ssd_scan(x, la, b, c, chunk=128)
+    assert torch.equal(y1, y2) and torch.equal(fin1, fin2)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (1, 2048, 4, 384, 384),                     # the mLSTM's widths
+    (2, 300, 2, 200, 136),                      # ragged tiles of P and N
+])
+@pytest.mark.parametrize("la_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bf16_wide_route_holds_unit_scale_b(cuda, B, S, H, P, N,
+                                                     la_dtype):
+    """b at unit scale, not the mLSTM's k / sqrt(N): the scores and the
+    inter-chunk term are sqrt(N) times larger, and the states handed from
+    ssd_wide_state to ssd_wide_scan keep a high and a low bf16 part, so y
+    holds the bf16 tolerance and the final state the fp32 one."""
+    rng = np.random.default_rng(16)
+    x = _randn(rng, (B, S, H, P), torch.bfloat16, cuda)
+    log_a = -torch.nn.functional.softplus(
+        _randn(rng, (B, S, H), torch.float32, cuda)).to(la_dtype)
+    b = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
+    c = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
+    before = ssd_mod.wide_launches
+    y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_mod.wide_launches == before + 1
+    y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
+                             chunk=128)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
     _close(fin, fin_ref, SSD_TOL[torch.float32])
 
@@ -301,19 +381,25 @@ def test_ssd_scan_bf16_refuses_what_it_does_not_take(cuda):
 
 
 def test_ssd_scan_bf16_kernels_use_tensor_cores_without_spills(cuda):
-    """Both tensor-core passes hold HMMA in every instance and spill
-    nothing; the fp32 SIMT kernel holds no HMMA."""
+    """The narrow route's mma.sync passes hold HMMA in every instance, the
+    wide route's wgmma passes HGMMA and TMA loads (UTMALDG), and none
+    spills; the fp32 SIMT kernel holds neither product."""
     _build.build_all()
     ptxas = ssd_mod.mma_passes(_build.ptxas_report("ssd_scan"))
-    counts = {f: c["HMMA"] for f, c in _build.sass_opcodes("ssd_scan").items()}
-    hmma = ssd_mod.mma_passes(counts)
-    assert sorted(hmma) == ["ssd_chunk_scan", "ssd_chunk_scan_wide",
-                            "ssd_chunk_state"], counts
-    assert all(n > 0 for ns in hmma.values() for n in ns), counts
+    sass = _build.sass_opcodes("ssd_scan")
+    ops = ssd_mod.mma_passes(sass)
+    assert sorted(ops) == ["ssd_chunk_scan", "ssd_chunk_state",
+                           "ssd_wide_scan", "ssd_wide_state"], sorted(sass)
+    for name, instances in ops.items():
+        assert all(o[ssd_mod.mma_opcode(name)] > 0 for o in instances), \
+            (name, instances)
+        if name in ssd_mod.WIDE_PASSES:
+            assert all(o["UTMALDG"] > 0 for o in instances), \
+                (name, instances)
     assert all(e["spill_stores"] == 0 for es in ptxas.values() for e in es), \
         ptxas
-    simt = [n for f, n in counts.items() if "ssd_kernel" in f]
-    assert simt and not any(simt), counts
+    simt = [o for f, o in sass.items() if "ssd_kernel" in f]
+    assert simt and not any(o["HMMA"] or o["HGMMA"] for o in simt), simt
 
 
 def test_ssd_scan_mlstm_widths_bf16_and_fp32_refusal(cuda):

@@ -114,12 +114,38 @@ def test_footprints_equal_the_wrappers_smem_bytes(kernel, dtype):
     ("ssd_scan", {"chunk": 64}, _args("ssd_scan", BF16, 80),
      {"scan x": 2 * 64 * 88, "scan S_in": 4 * 64 * 88, "scan seg": 8 * 64,
       "scan b": 2 * 64 * 72, "scan c": 2 * 64 * 72}),
-    # the wide route (P = N = 384): 128-wide P tiles and 64-row slabs
+    # the wide route (P = N = 384), boxes of 128 steps by 128 bytes (16 KB),
+    # S_in and (b w)^T boxes of 64 rows (8 KB): ssd_wide_state's terms (the
+    # scan pass takes as many bytes), three stages of b's box and two of
+    # x's two boxes, two (b w)^T buffers of four boxes, S_in's high and low
+    # parts of two boxes each on their way out, 2 KB of barriers and
+    # weights, 1 KB of alignment
     ("ssd_scan", {"chunk": 128},
      (_meta(1, 2048, 4, 384), _meta(1, 2048, 4), _meta(1, 2048, 4, 384),
       _meta(1, 2048, 4, 384)),
-     {"scan x": 2 * 128 * 136, "scan S_in": 4 * 64 * 136,
-      "scan seg": 8 * 128, "scan b": 2 * 128 * 72, "scan c": 2 * 128 * 72}),
+     {"state b": 3 * 16384, "state x": 2 * 2 * 16384,
+      "state (b w)^T, high and low, twice": 2 * 4 * 8192,
+      "state S_in out, high and low": 2 * 2 * 8192,
+      "state barriers, weights": 2048,
+      "state alignment": 1024}),
+    # ... whatever the chunk: a box holds 128 steps
+    ("ssd_scan", {"chunk": 32},
+     (_meta(1, 2048, 4, 384), _meta(1, 2048, 4), _meta(1, 2048, 4, 384),
+      _meta(1, 2048, 4, 384)),
+     {"state b": 3 * 16384, "state x": 2 * 2 * 16384,
+      "state (b w)^T, high and low, twice": 2 * 4 * 8192,
+      "state S_in out, high and low": 2 * 2 * 8192,
+      "state barriers, weights": 2048,
+      "state alignment": 1024}),
+    # ... and whatever the widths (wide by P alone, N = 32)
+    ("ssd_scan", {"chunk": 32},
+     (_meta(1, 100, 2, 160), _meta(1, 100, 2), _meta(1, 100, 2, 32),
+      _meta(1, 100, 2, 32)),
+     {"state b": 3 * 16384, "state x": 2 * 2 * 16384,
+      "state (b w)^T, high and low, twice": 2 * 4 * 8192,
+      "state S_in out, high and low": 2 * 2 * 8192,
+      "state barriers, weights": 2048,
+      "state alignment": 1024}),
     # SSD fp32 (ssd_smem_floats): x, b and c rows padded, scores, state,
     # three seg rows
     ("ssd_scan", {"chunk": 32},

@@ -203,10 +203,20 @@ def test_smem_footprint(kernel, params, dtype, hd, want):
     ((2, 200, 3, 40), 24, 64, torch.bfloat16, 64, 4 * 2 * 3 * 4 * 961),
     ((1, 1, 2, 32), 16, 128, torch.bfloat16, 16, 4 * 2 * 1 * 513),  # S = 1
     ((1, 4096, 32, 80), 64, 64, torch.float32, 64, 0),   # fp32: no passes
+    # the wide route: (B, H, nc - 1, 2, N, P rounded up to 8) bf16, the
+    # high and low parts of the states entering chunks 1 ..
+    ((1, 2048, 4, 384), 384, 128, torch.bfloat16, 128,
+     2 * 4 * 15 * 2 * 384 * 384),
+    ((8, 512, 4, 384), 384, 128, torch.bfloat16, 128,
+     2 * 32 * 3 * 2 * 384 * 384),
+    ((2, 300, 2, 196), 72, 64, torch.bfloat16, 64, 2 * 4 * 4 * 2 * 72 * 200),
+    ((1, 100, 2, 384), 384, 128, torch.bfloat16, 112, 0),  # one chunk
 ])
 def test_ssd_workspace_bytes(shape, N, chunk, dtype, L, want):
-    """The bf16 route's chunk is min(chunk, S) rounded up to 16, and its
-    workspace holds one fp32 state and one decay per chunk."""
+    """The bf16 route's chunk is min(chunk, S) rounded up to 16; the narrow
+    route's workspace holds one fp32 state and one decay per chunk, the
+    wide route's one state per chunk after the first as a high and a low
+    bf16 part."""
     shapes = (shape, (*shape[:3], N))
     assert ssd_mod.chunk_length(chunk, shape[1], dtype) == L
     assert ssd_mod.workspace_bytes({"chunk": chunk}, shapes, dtype) == want
@@ -286,6 +296,53 @@ def test_ssd_mma_passes_pick_the_launched_instance():
         "ssd_chunk_scan": [1], "ssd_chunk_state": [2]}
     assert ssd_mod.mma_passes(report, 128, torch.float32) == {
         "ssd_chunk_state": [4]}
+
+
+def test_ssd_mma_passes_pick_the_wide_instances():
+    """The wide route's wgmma passes are instances per log_a dtype alone
+    (their tiles are fixed); a launch at widths past 128 or 64 reduces a
+    report to them, a narrow one to the mma.sync passes, and each pass
+    names the SASS opcode of its products."""
+    ns = "_ZN11repro_torch44_GLOBAL__N__70402df9_11_ssd_scan_cu_e64d7abf"
+    report = {f"{ns}14ssd_wide_stateIfEEvNS0_8WideArgsE": 1,
+              f"{ns}13ssd_wide_scanIfEEvNS0_8WideArgsE": 2,
+              f"{ns}14ssd_wide_stateI13__nv_bfloat16EEvNS0_8WideArgsE": 3,
+              f"{ns}14ssd_chunk_scanIfLi16EEEvNS0_9ChunkArgsE": 4,
+              f"{ns}15ssd_chunk_stateIfLi16EEEvNS0_9ChunkArgsE": 5}
+    assert ssd_mod.mma_passes(report) == {
+        "ssd_wide_state": [1, 3], "ssd_wide_scan": [2],
+        "ssd_chunk_scan": [4], "ssd_chunk_state": [5]}
+    assert ssd_mod.mma_passes(report, 384, torch.float32, 384) == {
+        "ssd_wide_state": [1], "ssd_wide_scan": [2]}
+    assert ssd_mod.mma_passes(report, 160, torch.bfloat16, 32) == {
+        "ssd_wide_state": [3]}
+    assert ssd_mod.mma_passes(report, 128, torch.float32, 64) == {
+        "ssd_chunk_scan": [4], "ssd_chunk_state": [5]}
+    assert [ssd_mod.mma_opcode(p) for p in ssd_mod.WIDE_PASSES] == \
+        ["HGMMA", "HGMMA"]
+    assert [ssd_mod.mma_opcode(p) for p in ssd_mod.NARROW_PASSES] == \
+        ["HMMA", "HMMA"]
+
+
+@pytest.mark.parametrize("view", ["contiguous", "first_columns", "stride0",
+                                  "offset", "odd_width"])
+def test_ssd_tma_ready_keeps_what_tma_reads_and_copies_the_rest(view):
+    """The wide route's TMA maps need a 16-byte aligned start and strides
+    of multiples of 8 elements (0 for a broadcast head or batch): such a
+    view passes as it is, any other is copied into rows padded to 8 and
+    viewed at its width, with the same values."""
+    base = torch.arange(2 * 6 * 3 * 400, dtype=torch.float32).reshape(
+        2, 6, 3, 400).to(torch.bfloat16)
+    t, keep = {"contiguous": (base[..., :384].contiguous(), True),
+               "first_columns": (base[..., :384], True),
+               "stride0": (base[:, :, :1, :384].expand(2, 6, 3, 384), True),
+               "offset": (base[..., 1:385], False),
+               "odd_width": (base[..., :197].contiguous(), False)}[view]
+    got = ssd_mod.tma_ready(t)
+    assert (got.data_ptr() == t.data_ptr()) == keep
+    assert got.shape == t.shape and torch.equal(got, t)
+    assert got.stride(3) == 1 and got.data_ptr() % 16 == 0
+    assert all(s % 8 == 0 for s in got.stride()[:3])
 
 
 def test_autotuner_prunes_over_the_shared_memory_limit():

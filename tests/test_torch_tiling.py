@@ -97,6 +97,23 @@ def test_refusals_are_the_wrappers():
     assert "head_dim a multiple of 16" in ta.refused
 
 
+@pytest.mark.parametrize("chunk", [16, 32, 64, 128])
+def test_ssd_wide_route_admits_each_chunk_at_one_footprint(chunk):
+    """At the mLSTM's widths every chunk up to 128 is aligned and
+    admissible, and its shared memory is the same: the wide passes' boxes
+    hold 128 steps whatever the chunk (216,064 B)."""
+    x, b = _meta(1, 2048, 4, 384), _meta(1, 2048, 4, 384)
+    ta = analyze_tiling("ssd_scan", {"chunk": chunk},
+                        (x, _meta(1, 2048, 4), b, b))
+    assert ta.is_aligned and ta.admissible
+    assert ssd_mod.smem_bytes({"chunk": chunk}, (x.shape, b.shape),
+                              BF16) == 216064
+    assert ssd_mod.check_launch({"chunk": chunk}, (x.shape, b.shape), BF16,
+                                216064) is None
+    assert "216064 B of shared memory" in ssd_mod.check_launch(
+        {"chunk": chunk}, (x.shape, b.shape), BF16, 216063)
+
+
 def test_lint_tiling_scn204_to_207():
     x = (_meta(1, 200, 4, 72),)       # 72 has no bf16 instance: refused
     kept, flagged, diags = lint_tiling(
