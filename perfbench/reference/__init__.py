@@ -1,0 +1,2 @@
+"""Plain fp32 references of the benchmark's configurations.  They import
+nothing of the program."""
