@@ -351,7 +351,8 @@ def kernel_trace(fn, calls: int = 20) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        call = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        call = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
         if not call:
             continue
         for e in call:
@@ -3432,7 +3433,9 @@ def run_blocks(fns, x) -> list:
 
 def device_busy_ms(fn) -> float:
     """Device time (ms) of the kernels one call of ``fn()`` launches, from
-    ``torch.profiler``; 0.0 where the profiler sees no device time."""
+    ``torch.profiler``; 0.0 where the profiler sees no device time.  The
+    device copies of ``record_function`` ranges (the port's spans among
+    them) are user annotations, not device work, and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3443,7 +3446,8 @@ def device_busy_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
 
 
 def zoo_net(name, dev, peak_fp32, peak_bw) -> dict:

@@ -8,7 +8,8 @@ tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
 launches a kernel or raises; it never falls back.  ``launches`` counts
 calls that launched the kernel: a call launches a pass over the split
 cache and, when the cache is split, a pass that combines the splits, and
-counts once.
+counts once.  Each call is a ``kernel.decode_attention`` span of
+:mod:`..tracing`.
 
 ``lengths`` must lie in ``[0, Smax]``.  The launch path never reads them
 back to the host (that would synchronise every call); the kernel clamps
@@ -35,6 +36,7 @@ import re
 
 import torch
 
+from .. import tracing
 from . import _build, sharded
 from .ref import decode_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
@@ -234,46 +236,49 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
     valid key); ``Smax`` need not divide ``block_k`` (None:
     :func:`block_size` chooses), and a row with no valid key gives
     zeros."""
-    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q (B,H,hd) and k, v (B,Smax,Hk,hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, H, hd = q.shape
-    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)} (H must be a multiple of Hk)")
-    for name, t in (("lengths", lengths), ("starts", starts)):
-        if t is not None and tuple(t.shape) != (B,):
-            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"softcap must be > 0, got {softcap}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if block_k is not None and block_k < 1:
-        raise ValueError(f"block_k must be >= 1, got {block_k}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
-        # the kernel has no backward and decode never trains: a gradient
-        # would stop here unseen on the card
-        raise ValueError("decode_attention takes no input that requires "
-                         "grad while grad mode is on: the kernel has no "
-                         "backward (run decode under torch.no_grad())")
-    if sharded.is_dtensor(q):
-        if starts is not None or return_lse:
-            raise ValueError("decode_attention on DTensors takes no starts "
-                             "and returns no lse: it combines the slices "
-                             "of a split cache itself")
-        return sharded.decode_attention(
-            decode_attention, q, k, v, lengths, softcap=softcap,
-            window=window, block_k=block_k)
-    if q.device.type in ("cpu", "meta"):
-        return decode_attention_ref(q, k, v, lengths, softcap=softcap,
-                                    window=window, starts=starts,
-                                    return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch(q, k, v, lengths, softcap, window, block_k, starts,
-                   return_lse)
+    with tracing.span("kernel.decode_attention"):
+        if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
+            raise ValueError(f"expected q (B,H,hd) and k, v (B,Smax,Hk,hd), "
+                             f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}")
+        B, H, hd = q.shape
+        if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+            raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                             f"{tuple(q.shape)} (H must be a multiple of Hk)")
+        for name, t in (("lengths", lengths), ("starts", starts)):
+            if t is not None and tuple(t.shape) != (B,):
+                raise ValueError(f"{name} must be ({B},), got "
+                                 f"{tuple(t.shape)}")
+        if softcap is not None and softcap <= 0:
+            raise ValueError(f"softcap must be > 0, got {softcap}")
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if block_k is not None and block_k < 1:
+            raise ValueError(f"block_k must be >= 1, got {block_k}")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                        v.requires_grad):
+            # the kernel has no backward and decode never trains: a gradient
+            # would stop here unseen on the card
+            raise ValueError("decode_attention takes no input that requires "
+                             "grad while grad mode is on: the kernel has no "
+                             "backward (run decode under torch.no_grad())")
+        if sharded.is_dtensor(q):
+            if starts is not None or return_lse:
+                raise ValueError("decode_attention on DTensors takes no "
+                                 "starts and returns no lse: it combines "
+                                 "the slices of a split cache itself")
+            return sharded.decode_attention(
+                decode_attention, q, k, v, lengths, softcap=softcap,
+                window=window, block_k=block_k)
+        if q.device.type in ("cpu", "meta"):
+            return decode_attention_ref(q, k, v, lengths, softcap=softcap,
+                                        window=window, starts=starts,
+                                        return_lse=return_lse)
+        if q.device.type != "cuda":
+            raise ValueError(f"decode_attention: unsupported device "
+                             f"{q.device}")
+        return _launch(q, k, v, lengths, softcap, window, block_k, starts,
+                       return_lse)
 
 
 def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,

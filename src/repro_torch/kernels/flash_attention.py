@@ -12,7 +12,9 @@ and an input that requires grad), a CUDA call goes through
 :class:`FlashAttention`, whose forward launches the kernel and whose
 backward differentiates the plain version recomputed from the saved
 inputs, the function the reference's models differentiate;
-``backward_launches`` counts those recomputations.
+``backward_launches`` counts those recomputations.  Each call is a
+``kernel.flash_attention`` span of :mod:`..tracing`, each backward
+a ``kernel.flash_attention.backward`` span with CUDA events.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import re
 
 import torch
 
+from .. import tracing
 from . import _build, sharded
 from .ref import flash_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
@@ -147,35 +150,37 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     """q: (B, Sq, H, hd); k, v: (B, Sk, Hk, hd) -> (B, Sq, H, hd) in q's
     dtype.  ``Sq``/``Sk`` need not divide the block sizes; sizes left None
     are chosen by :func:`block_sizes`."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q (B,Sq,H,hd) and k, v (B,Sk,Hk,hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, Sq, H, hd = q.shape
-    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"softcap must be > 0, got {softcap}")
-    if (block_q is not None and block_q < 1) or \
-            (block_k is not None and block_k < 1):
-        raise ValueError(f"block sizes must be >= 1, got {block_q}, {block_k}")
-    if sharded.is_dtensor(q):
-        return sharded.flash_attention(
-            flash_attention, q, k, v, causal=causal, window=window,
-            softcap=softcap, block_q=block_q, block_k=block_k)
-    if q.device.type in ("cpu", "meta"):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window, softcap,
-                                    block_q, block_k)
-    return _launch(q, k, v, causal, window, softcap, block_q, block_k)
+    with tracing.span("kernel.flash_attention"):
+        if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+            raise ValueError(f"expected q (B,Sq,H,hd) and k, v (B,Sk,Hk,hd), "
+                             f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}")
+        B, Sq, H, hd = q.shape
+        if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+            raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                             f"{tuple(q.shape)}")
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if softcap is not None and softcap <= 0:
+            raise ValueError(f"softcap must be > 0, got {softcap}")
+        if (block_q is not None and block_q < 1) or \
+                (block_k is not None and block_k < 1):
+            raise ValueError(f"block sizes must be >= 1, got {block_q}, "
+                             f"{block_k}")
+        if sharded.is_dtensor(q):
+            return sharded.flash_attention(
+                flash_attention, q, k, v, causal=causal, window=window,
+                softcap=softcap, block_q=block_q, block_k=block_k)
+        if q.device.type in ("cpu", "meta"):
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                        v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                        block_q, block_k)
+        return _launch(q, k, v, causal, window, softcap, block_q, block_k)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -191,7 +196,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         global backward_launches
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with tracing.span("kernel.flash_attention.backward",
+                          device=grad.is_cuda), torch.enable_grad():
             o = flash_attention_ref(*inputs, **ctx.mask)
             dq, dk, dv = torch.autograd.grad(o, inputs, grad)
         backward_launches += 1

@@ -30,7 +30,9 @@ and an input that requires grad), a CUDA call goes through
 :class:`SsdScan`, whose forward launches the kernel and whose backward
 differentiates the plain version recomputed from the saved inputs, the
 function the reference's models differentiate; ``backward_launches``
-counts those recomputations.
+counts those recomputations.  Each call is a ``kernel.ssd_scan`` span of
+:mod:`..tracing`, each backward a ``kernel.ssd_scan.backward``
+span with CUDA events.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import re
 
 import torch
 
+from .. import tracing
 from . import _build, sharded
 from .ref import ssd_ref
 from .substrate import card_smem_limit
@@ -246,24 +249,25 @@ def ssd_scan(x, log_a, b, c, *, chunk=128):
     Returns (y: (B, S, H, P) in x's dtype, final_state: (B, H, N, P) fp32).
     ``S`` need not divide the chunk length.
     """
-    if x.ndim != 4 or log_a.shape != x.shape[:3] or b.ndim != 4 or \
-            b.shape != c.shape or b.shape[:3] != x.shape[:3]:
-        raise ValueError(f"expected x (B,S,H,P), log_a (B,S,H), b, c "
-                         f"(B,S,H,N), got {tuple(x.shape)}, "
-                         f"{tuple(log_a.shape)}, {tuple(b.shape)}, "
-                         f"{tuple(c.shape)}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if sharded.is_dtensor(x):
-        return sharded.ssd_scan(ssd_scan, x, log_a, b, c, chunk=chunk)
-    if x.device.type in ("cpu", "meta"):
-        return ssd_ref(x, log_a, b, c, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, log_a, b, c)):
-        return SsdScan.apply(x, log_a, b, c, chunk)
-    return _launch(x, log_a, b, c, chunk)
+    with tracing.span("kernel.ssd_scan"):
+        if x.ndim != 4 or log_a.shape != x.shape[:3] or b.ndim != 4 or \
+                b.shape != c.shape or b.shape[:3] != x.shape[:3]:
+            raise ValueError(f"expected x (B,S,H,P), log_a (B,S,H), b, c "
+                             f"(B,S,H,N), got {tuple(x.shape)}, "
+                             f"{tuple(log_a.shape)}, {tuple(b.shape)}, "
+                             f"{tuple(c.shape)}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if sharded.is_dtensor(x):
+            return sharded.ssd_scan(ssd_scan, x, log_a, b, c, chunk=chunk)
+        if x.device.type in ("cpu", "meta"):
+            return ssd_ref(x, log_a, b, c, chunk=chunk)
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd_scan: unsupported device {x.device}")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, log_a, b, c)):
+            return SsdScan.apply(x, log_a, b, c, chunk)
+        return _launch(x, log_a, b, c, chunk)
 
 
 class SsdScan(torch.autograd.Function):
@@ -282,7 +286,8 @@ class SsdScan(torch.autograd.Function):
     def backward(ctx, grad_y, grad_final):
         global backward_launches
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with tracing.span("kernel.ssd_scan.backward",
+                          device=inputs[0].is_cuda), torch.enable_grad():
             y, final = ssd_ref(*inputs, chunk=ctx.chunk)
             pairs = [(o, g) for o, g in ((y, grad_y), (final, grad_final))
                      if g is not None]

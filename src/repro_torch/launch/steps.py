@@ -8,6 +8,10 @@ mesh a step runs on plain tensors; under one its inputs are DTensors laid
 out as :func:`shardings_for` says, and the kernels run on each rank's shard
 (``kernels/sharded.py``).  The dry-run, the trainer and the serving engine
 all build their steps here.
+
+Spans (:mod:`..tracing`): ``step.prefill``, ``step.decode`` and
+``step.train``, inside which ``train.forward``, ``train.backward`` and
+``train.optimizer`` carry CUDA events on the card.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..models import build_model
 from ..models import layers as L
 from ..models.moe import pad_experts
 from ..optim import AdamWConfig, apply_updates
+from .. import tracing
 from ..runtime.sharding import (AxisRules, _divisible_spec, constrain,
                                 distribute_tree, is_dtensor, map_axes,
                                 multi_pod_rules, placements,
@@ -36,8 +41,11 @@ def value_and_grad(loss_fn, params, batch):
     ``params`` itself never requires grad."""
     leaves = L.tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    loss, metrics = loss_fn(L.tree_unflatten(params, live), batch)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    on_card = batch["tokens"].device.type == "cuda"
+    with tracing.span("train.forward", device=on_card):
+        loss, metrics = loss_fn(L.tree_unflatten(params, live), batch)
+    with tracing.span("train.backward", device=on_card):
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -59,15 +67,17 @@ def make_train_step(model, adamw_cfg: AdamWConfig, *,
     (a pending data-parallel sum becomes a reduce-scatter, which XLA
     inserts by itself), and the metrics come back whole."""
     def train_step(params, opt_state, batch):
-        with use_rules(rules, mesh):
+        with tracing.span("step.train"), use_rules(rules, mesh):
             loss, metrics, grads = value_and_grad(model.loss, params, batch)
             if mesh is not None:
                 leaves = L.tree_leaves(params)
                 grads = L.tree_unflatten(params, [
                     g.redistribute(p.device_mesh, p.placements)
                     for p, g in zip(leaves, L.tree_leaves(grads))])
-            params, opt_state, om = apply_updates(adamw_cfg, params, grads,
-                                                  opt_state)
+            with tracing.span("train.optimizer",
+                              device=batch["tokens"].device.type == "cuda"):
+                params, opt_state, om = apply_updates(adamw_cfg, params,
+                                                      grads, opt_state)
             out = {"loss": loss, **metrics, **om}
             if mesh is not None:
                 out = {k: _whole(v) for k, v in out.items()}
@@ -78,7 +88,7 @@ def make_train_step(model, adamw_cfg: AdamWConfig, *,
 
 def make_prefill_step(model, *, rules: AxisRules | None = None, mesh=None):
     def prefill_step(params, cache, batch):
-        with use_rules(rules, mesh):
+        with tracing.span("step.prefill"), use_rules(rules, mesh):
             kw = {}
             if "frames" in batch:
                 kw["frames"] = batch["frames"]
@@ -91,7 +101,7 @@ def make_prefill_step(model, *, rules: AxisRules | None = None, mesh=None):
 
 def make_decode_step(model, *, rules: AxisRules | None = None, mesh=None):
     def decode_step(params, cache, token, cache_len):
-        with use_rules(rules, mesh):
+        with tracing.span("step.decode"), use_rules(rules, mesh):
             logits, cache = model.decode_step(params, token, cache,
                                               cache_len)
             # greedy next token: what the serving engine feeds back (over

@@ -16,6 +16,12 @@ written in place: the pool's cache by the decode steps, the scratch cache
 of the bucketed path by each admission's prefill (see
 :meth:`ServingEngine._admit_bucketed` for why a scratch that holds an
 earlier admission's rows gives the same result as the reference's zeros).
+
+Spans (:mod:`..tracing`): ``engine.step`` per loop iteration
+(``admitted``, ``rows``), ``engine.admit`` per exact admission (``rid``,
+``prompt_tokens``) or per bucket (``rids``, ``prompt_tokens``), and
+``engine.readback`` around each decode step's copy of its tokens to the
+host.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from ..core.partition import PartitionConfig
 from ..launch.steps import make_decode_step, make_prefill_step
 from ..models.layers import tree_leaves
+from .. import tracing
 from .metrics import ServingStats, mean, percentile
 from .queues import KVCachePool, PROMPT_BUCKETS, bucket_for
 from .requests import Request
@@ -143,9 +150,11 @@ class ServingEngine:
         steps = 0
         t0 = time.perf_counter()
         while (self.queue or self.active) and steps < max_steps:
-            self._admit()
-            if self.active:
-                self._decode_step(finished)
+            with tracing.span("engine.step") as sp:
+                admitted = self._admit()
+                sp.set(admitted=admitted, rows=len(self.active))
+                if self.active:
+                    self._decode_step(finished)
             steps += 1
         waits = [r.queue_wait_s for r in finished
                  if r.queue_wait_s is not None]
@@ -173,33 +182,37 @@ class ServingEngine:
                                                   max_len=self.max_len)
         return self._scratch
 
-    def _admit(self) -> None:
+    def _admit(self) -> int:
+        """Admit what the free slots take; returns how many."""
         batch: list[tuple[Request, int]] = []
         while self.queue and self.pool.free:
             req = self.queue.pop(0)
             slot = self.pool.acquire(req.rid)
             batch.append((req, slot))
         if not batch:
-            return
+            return 0
         if self.prompt_buckets is None:
             for req, slot in batch:
                 self._admit_exact(req, slot)
-            return
-        self._admit_bucketed(batch)
+        else:
+            self._admit_bucketed(batch)
+        return len(batch)
 
     def _admit_exact(self, req: Request, slot: int) -> None:
         """Per-request prefill (recurrent-state models): a fresh batch-1
         cache at the prompt's own length, the first token taken from the
         prefill logits."""
-        single = self.model.init_cache(batch=1, max_len=self.max_len)
-        logits, single = self._prefill(self.params, single,
-                                       {"tokens": self._tensor(
-                                           req.prompt)[None, :]})
-        tok = int(torch.argmax(logits[0, -1]))
-        req.tokens.append(tok)
-        req.admitted_at = time.perf_counter()
-        req.first_token_at = req.admitted_at
-        self._write_slot(single, slot)
+        with tracing.span("engine.admit", rid=req.rid,
+                          prompt_tokens=len(req.prompt)):
+            single = self.model.init_cache(batch=1, max_len=self.max_len)
+            logits, single = self._prefill(self.params, single,
+                                           {"tokens": self._tensor(
+                                               req.prompt)[None, :]})
+            tok = int(torch.argmax(logits[0, -1]))
+            req.tokens.append(tok)
+            req.admitted_at = time.perf_counter()
+            req.first_token_at = req.admitted_at
+            self._write_slot(single, slot)
         self.pool.lengths[slot] = len(req.prompt)
         self._next_tok[slot, 0] = tok
         self.active[slot] = req
@@ -222,15 +235,18 @@ class ServingEngine:
         they are masked until overwritten, as the padding is."""
         now = time.perf_counter()
         pre = max(len(req.prompt) - 1 for req, _ in batch)
-        if pre > 0:
-            bucket = bucket_for(pre, self.prompt_buckets)
-            toks = np.zeros((self.width, bucket), np.int32)
-            for j, (req, _) in enumerate(batch):
-                toks[j, :len(req.prompt) - 1] = req.prompt[:-1]
-            _, cache = self._prefill(self.params, self._scratch_cache(),
-                                     {"tokens": self._tensor(toks)})
-            self._scatter_rows(cache, rows=list(range(len(batch))),
-                               slots=[slot for _, slot in batch])
+        with tracing.span("engine.admit", rids=[req.rid for req, _ in batch],
+                          prompt_tokens=sum(len(req.prompt)
+                                            for req, _ in batch)):
+            if pre > 0:
+                bucket = bucket_for(pre, self.prompt_buckets)
+                toks = np.zeros((self.width, bucket), np.int32)
+                for j, (req, _) in enumerate(batch):
+                    toks[j, :len(req.prompt) - 1] = req.prompt[:-1]
+                _, cache = self._prefill(self.params, self._scratch_cache(),
+                                         {"tokens": self._tensor(toks)})
+                self._scatter_rows(cache, rows=list(range(len(batch))),
+                                   slots=[slot for _, slot in batch])
         for req, slot in batch:
             req.admitted_at = now
             self.pool.lengths[slot] = len(req.prompt) - 1
@@ -261,7 +277,8 @@ class ServingEngine:
         next_tok, _, self.pool.cache = self._decode(
             self.params, self.pool.cache, self._tensor(self._next_tok),
             self._tensor(self.pool.lengths))
-        nxt = next_tok.cpu().numpy()
+        with tracing.span("engine.readback"):
+            nxt = next_tok.cpu().numpy()
         now = time.perf_counter()
         for slot, req in list(self.active.items()):
             t = int(nxt[slot, 0])

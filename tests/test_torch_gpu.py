@@ -17,6 +17,8 @@ tensor cores too; they split every fp32 operand into two bf16 parts, so the
 final state keeps the fp32 tolerance.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref, ssd_ref)
 from repro_torch.kernels.substrate import card_smem_limit
 from repro_torch.models import cnn_zoo
+from repro_torch import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -1315,6 +1318,68 @@ def test_ssd_gradients_through_the_kernel(cuda, dtype, S, H, P, N, chunk):
     for g, w in zip(got, want):
         assert g.abs().sum() > 0
         _close(g, w, SSD_TOL[dtype])
+
+
+def test_backward_spans_time_the_device(cuda):
+    """The Functions' backward spans open on autograd's device thread, as
+    roots of its own, and get a positive CUDA-event time; the wrappers'
+    forward spans stay on the calling thread, with no events."""
+    rng = np.random.default_rng(43)
+    q, k, v = (_randn(rng, s, torch.bfloat16, cuda).requires_grad_()
+               for s in ((1, 512, 4, 64), (1, 512, 2, 64), (1, 512, 2, 64)))
+    x = _randn(rng, (1, 512, 4, 64), torch.bfloat16, cuda).requires_grad_()
+    b, c = (_randn(rng, (1, 512, 4, 64), torch.bfloat16, cuda)
+            .requires_grad_() for _ in range(2))
+    la = torch.from_numpy(-rng.random((1, 512, 4), dtype=np.float32)).to(
+        cuda).requires_grad_()
+    tracing.clear()
+    tracing.start()
+    try:
+        o = fa_mod.flash_attention(q, k, v)
+        torch.autograd.grad(o.float().square().sum(), (q, k, v))
+        y, final = ssd_mod.ssd_scan(x, la, b, c, chunk=64)
+        torch.autograd.grad(y.float().square().sum() + final.sum(),
+                            (x, la, b, c))
+    finally:
+        tracing.stop()
+    recs = {r["name"]: r for r in tracing.spans()}
+    tracing.clear()
+    assert set(recs) == {"kernel.flash_attention", "kernel.ssd_scan",
+                         "kernel.flash_attention.backward",
+                         "kernel.ssd_scan.backward"}
+    here = threading.get_ident()
+    for name in ("kernel.flash_attention", "kernel.ssd_scan"):
+        assert recs[name]["thread"] == here
+        assert recs[name]["device_s"] is None
+    for name in ("kernel.flash_attention.backward",
+                 "kernel.ssd_scan.backward"):
+        assert recs[name]["thread"] != here
+        assert recs[name]["parent"] is None
+        assert recs[name]["device_s"] > 0
+
+
+def test_chip_smoke_profiler_readers_count_kernels_not_spans(cuda):
+    """Under the profiler each wrapper's span also appears as a device-side
+    user annotation; chip_smoke's kernel_trace and device_busy_ms count
+    the kernels alone, so a call reads the same with the span as without."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rng = np.random.default_rng(44)
+    q = _randn(rng, (4, 8, 128), torch.bfloat16, cuda)
+    k, v = (_randn(rng, (4, 1024, 2, 128), torch.bfloat16, cuda)
+            for _ in range(2))
+    lengths = torch.full((4,), 1024, dtype=torch.int32, device=cuda)
+
+    def call():
+        return da_mod.decode_attention(q, k, v, lengths)
+    trace = chip_smoke.kernel_trace(call, calls=5)
+    assert trace and not any(n.startswith(tracing.PREFIX)
+                             for n in trace["kernel_ms"]), trace
+    # an annotation over the kernels would double the call's busy time
+    assert chip_smoke.device_busy_ms(call) == pytest.approx(
+        trace["sum_ms"], rel=0.3)
 
 
 def test_decode_attention_refuses_input_that_requires_grad(cuda):
