@@ -903,10 +903,15 @@ def _plain_kernels():
             causal=True, window=None, softcap=None, block_q=None, \
             block_k=None: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window, softcap=softcap)
-        L.decode_attention = encdec.decode_attention = lambda q, k, v, \
-            lengths, *, softcap=None, window=None, block_k=None: \
-            ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
-                                     window=window)
+
+        def plain_decode(q, k, v, lengths, *, softcap=None, window=None,
+                         block_k=None, out=None):
+            o = ref.decode_attention_ref(q, k, v, lengths, softcap=softcap,
+                                         window=window)
+            # the graphed decode step hands its eager call a buffer
+            return o if out is None else out.copy_(o)
+
+        L.decode_attention = encdec.decode_attention = plain_decode
         ssm.ssd_scan = lambda x, la, b, c, *, chunk: ref.ssd_ref(
             x, la, b, c, chunk=chunk)
         try:
@@ -1393,6 +1398,19 @@ def _route_differ(a, b) -> tuple[int, int]:
     return differ, routed
 
 
+def _eager_decode(model):
+    """``make_decode_step``'s step, run eagerly: the model's decode step
+    and its greedy next token."""
+    import torch
+
+    def decode(p, cache, token, lengths):
+        logits, cache = model.decode_step(p, token, cache, lengths)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        return nxt, logits, cache
+
+    return decode
+
+
 def engine_vs_plain(label, model, params, requests, width, max_len) -> dict:
     """The engine's tokens held against the same engine with the kernels'
     plain versions (``_plain_kernels``), as ``forward`` cannot hold them
@@ -1423,6 +1441,11 @@ def engine_vs_plain(label, model, params, requests, width, max_len) -> dict:
         for r in requests():
             eng.submit(r)
         prefill, decode, admit = eng._prefill, eng._decode, eng._admit_exact
+        if model.cfg.moe_experts:
+            # the routing log reads each MoE call's experts on the host,
+            # which a replay of the graphed decode step never calls: these
+            # decode steps run eagerly
+            decode = _eager_decode(model)
 
         def admit_logged(req, slot):
             log["admitting"] = req.rid

@@ -26,6 +26,11 @@ keys before a per-row bound, and ``return_lse`` returns each row's
 log-sum-exp beside the output, written by the kernel itself (by
 ``da_combine``, or by the bf16 kernel when the cache is not split), so
 that :func:`.ref.combine_partials` can merge the slices' outputs.
+
+``out`` is a buffer the output is written into, in place of a new
+tensor: the decode step replayed as CUDA graphs
+(``launch/steps.py``) hands each eager call the buffer its next graph
+reads.
 """
 
 from __future__ import annotations
@@ -227,7 +232,7 @@ def split_plan(q, k, block_k: int | None = None,
 
 
 def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
-                     block_k=None, starts=None, return_lse=False):
+                     block_k=None, starts=None, return_lse=False, out=None):
     """q: (B, H, hd); k, v: (B, Smax, Hk, hd); lengths: (B,) int32 in
     ``[0, Smax]``; ``window``: keys at ``kpos < length - window`` are
     masked too; ``starts``: (B,) int32, keys at ``kpos < starts[b]`` are
@@ -255,6 +260,14 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
             raise ValueError(f"window must be >= 1, got {window}")
         if block_k is not None and block_k < 1:
             raise ValueError(f"block_k must be >= 1, got {block_k}")
+        if out is not None and (tuple(out.shape) != (B, H, hd) or
+                                out.dtype != q.dtype or
+                                out.device != q.device or
+                                not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous {q.dtype} tensor of "
+                             f"shape {tuple(q.shape)} on {q.device}, got "
+                             f"{out.dtype} {tuple(out.shape)} on "
+                             f"{out.device}")
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                         v.requires_grad):
             # the kernel has no backward and decode never trains: a gradient
@@ -263,26 +276,32 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
                              "grad while grad mode is on: the kernel has no "
                              "backward (run decode under torch.no_grad())")
         if sharded.is_dtensor(q):
-            if starts is not None or return_lse:
+            if starts is not None or return_lse or out is not None:
                 raise ValueError("decode_attention on DTensors takes no "
-                                 "starts and returns no lse: it combines "
-                                 "the slices of a split cache itself")
+                                 "starts or out and returns no lse: it "
+                                 "combines the slices of a split cache "
+                                 "itself")
             return sharded.decode_attention(
                 decode_attention, q, k, v, lengths, softcap=softcap,
                 window=window, block_k=block_k)
         if q.device.type in ("cpu", "meta"):
-            return decode_attention_ref(q, k, v, lengths, softcap=softcap,
-                                        window=window, starts=starts,
-                                        return_lse=return_lse)
+            got = decode_attention_ref(q, k, v, lengths, softcap=softcap,
+                                       window=window, starts=starts,
+                                       return_lse=return_lse)
+            if out is None:
+                return got
+            o, lse = got if return_lse else (got, None)
+            out.copy_(o)
+            return (out, lse) if return_lse else out
         if q.device.type != "cuda":
             raise ValueError(f"decode_attention: unsupported device "
                              f"{q.device}")
         return _launch(q, k, v, lengths, softcap, window, block_k, starts,
-                       return_lse)
+                       return_lse, out)
 
 
 def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,
-            return_lse=False):
+            return_lse=False, out=None):
     global launches
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype or lengths.dtype != torch.int32 or \
@@ -311,7 +330,8 @@ def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,
                              f"as 16-byte pieces: its storage and strides "
                              f"{t.stride()} must be 16-byte aligned")
     plan = split_plan(q, k, block_k, window)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+        if out is None else out
     ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                      device=q.device) if plan["workspace_floats"] else None
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \

@@ -9,9 +9,14 @@ out as :func:`shardings_for` says, and the kernels run on each rank's shard
 (``kernels/sharded.py``).  The dry-run, the trainer and the serving engine
 all build their steps here.
 
-Spans (:mod:`..tracing`): ``step.prefill``, ``step.decode`` and
-``step.train``, inside which ``train.forward``, ``train.backward`` and
-``train.optimizer`` carry CUDA events on the card.
+On the card the decode step of a decoder-only model replays itself as
+CUDA graphs cut at each ``decode_attention`` call (:class:`_DecodeGraphs`);
+``graph_captures`` and ``graph_replays`` count its captures and replays.
+
+Spans (:mod:`..tracing`): ``step.prefill``, ``step.decode`` (``graphed``:
+whether the call was a replay) and ``step.train``, inside which
+``train.forward``, ``train.backward`` and ``train.optimizer`` carry CUDA
+events on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any
 
 import torch
 
+from .. import _device
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import build_model
 from ..models import layers as L
@@ -99,16 +105,104 @@ def make_prefill_step(model, *, rules: AxisRules | None = None, mesh=None):
     return prefill_step
 
 
+graph_captures = 0
+graph_replays = 0
+
+
+class _DecodeGraphs:
+    """A decode step replayed as CUDA graphs, for one cache at a time.
+
+    The first call on a cache runs the step eagerly (the call's own step,
+    and the warm-up of what the capture then records) and captures the
+    step into one private memory pool as a chain of graphs
+    (:func:`.._device.capture_chain`), cut at each attention layer's
+    ``decode_attention`` call: the first graph runs the embedding and
+    layer 0 up to its attention call, each next one the rest of a layer and
+    the next layer up to its call (recurrent and MoE layers fall whole
+    inside one), the last the last layer's remainder, the final norm, the
+    unembedding and the argmax.  Every later call copies the token and the
+    lengths into the static buffers the graphs read and replays the chain,
+    with one eager ``decode_attention`` launch between two graphs, looked
+    up as ``layers.decode_attention`` at that moment so that every wrapper
+    in place sees every call; it writes the buffer the next graph reads.
+    The same kernels run in the same order on the same inputs as the eager
+    step.
+
+    The capture is keyed by the cache's and the parameters' leaves (address,
+    shape, stride, dtype) and the width: a call on another cache captures
+    anew and frees the previous chain.  The returned token and logits are
+    copies, the cache the caller's own leaves, written in place."""
+
+    def __init__(self, step):
+        self.step = step
+        self.key = None
+        self.chain = None
+        self.token = self.lengths = None
+
+    @staticmethod
+    def _key(params, cache, token) -> tuple:
+        return (tuple(token.shape),
+                *((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in L.tree_leaves((params, cache))))
+
+    def __call__(self, params, cache, token, cache_len):
+        """The step's (next_tok, logits, cache), and whether it replayed."""
+        global graph_captures, graph_replays
+        key = self._key(params, cache, token)
+        if key != self.key:
+            self.release()
+            out = self.step(params, cache, token, cache_len)
+            self.token = token.clone()
+            self.lengths = torch.empty(token.shape[0], dtype=torch.int32,
+                                       device=token.device)
+            self.chain = _device.capture_chain(
+                self.step, (params, cache, self.token, self.lengths),
+                token.device, L, "decode_attention")
+            self.key = key
+            graph_captures += 1
+            return out, False
+        self.token.copy_(token)
+        self.lengths.copy_(torch.as_tensor(cache_len, dtype=torch.int32,
+                                           device=token.device))
+        next_tok, logits, _ = self.chain.replay()
+        graph_replays += 1
+        return (next_tok.clone(), logits.clone(), cache), True
+
+    def release(self) -> None:
+        if self.chain is not None:
+            self.chain.release()
+        self.key = self.chain = self.token = self.lengths = None
+
+
+def _graphed(model, mesh, token) -> bool:
+    """Whether a decode step replays as CUDA graphs: plain CUDA tensors
+    under no mesh, for a decoder-only model.  The CPU and ``meta`` run the
+    plain versions and DTensors the sharded kernels, eagerly.  The
+    encoder-decoder stays eager: its cross-attention calls the kernel
+    under ``encdec``'s own name, which the cut does not see."""
+    return (mesh is None and token.device.type == "cuda"
+            and not is_dtensor(token) and not model.cfg.is_encdec)
+
+
 def make_decode_step(model, *, rules: AxisRules | None = None, mesh=None):
+    def step(params, cache, token, cache_len):
+        logits, cache = model.decode_step(params, token, cache, cache_len)
+        # greedy next token: what the serving engine feeds back (over the
+        # whole vocabulary: gathered under a mesh)
+        last = constrain(logits[:, -1], "act_batch", None)
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        return next_tok, logits, cache
+
+    graphs = _DecodeGraphs(step)
+
     def decode_step(params, cache, token, cache_len):
-        with tracing.span("step.decode"), use_rules(rules, mesh):
-            logits, cache = model.decode_step(params, token, cache,
-                                              cache_len)
-            # greedy next token: what the serving engine feeds back (over
-            # the whole vocabulary: gathered under a mesh)
-            last = constrain(logits[:, -1], "act_batch", None)
-            next_tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
-            return next_tok, logits, cache
+        with tracing.span("step.decode") as sp, use_rules(rules, mesh):
+            if not _graphed(model, mesh, token):
+                sp.set(graphed=False)
+                return step(params, cache, token, cache_len)
+            out, replayed = graphs(params, cache, token, cache_len)
+            sp.set(graphed=replayed)
+            return out
 
     return decode_step
 

@@ -131,6 +131,44 @@ def test_decode_wrapper_checks_shapes():
                          torch.zeros(1, dtype=torch.int32), softcap=0.0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_decode_out_receives_what_the_call_returns(dtype, return_lse):
+    """``out=`` is returned in place of a new tensor, holding exactly what
+    the call without it returns (a row of length 0 included); the lse is
+    unchanged beside it."""
+    _, (tq, tk, tv, tl) = _inputs(8, 3, 40, 4, 2, 16, dtype, [40, 7, 0])
+    want = decode_attention(tq, tk, tv, tl, softcap=20.0,
+                            return_lse=return_lse)
+    out = torch.full_like(tq, float("nan"))
+    got = decode_attention(tq, tk, tv, tl, softcap=20.0,
+                           return_lse=return_lse, out=out)
+    if return_lse:
+        (got, lse), (want, want_lse) = got, want
+        assert torch.equal(lse, want_lse)
+    assert got is out
+    assert torch.equal(out, want)
+
+
+def test_decode_out_on_meta_is_returned():
+    q = torch.empty(16, 32, 128, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(16, 4096, 8, 128, dtype=torch.bfloat16, device="meta")
+    out = torch.empty_like(q)
+    got = decode_attention(q, k, k, torch.empty(16, dtype=torch.int32,
+                                                device="meta"), out=out)
+    assert got is out
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strides"])
+def test_decode_out_of_another_shape_dtype_or_layout_raises(bad):
+    _, (tq, tk, tv, tl) = _inputs(9, 2, 24, 4, 2, 16, "float32")
+    out = {"shape": torch.empty(2, 4, 8),
+           "dtype": torch.empty(2, 4, 16, dtype=torch.bfloat16),
+           "strides": torch.empty(2, 16, 4).transpose(1, 2)}[bad]
+    with pytest.raises(ValueError, match="out must be"):
+        decode_attention(tq, tk, tv, tl, out=out)
+
+
 def test_decode_on_cpu_and_meta_launches_nothing():
     da_mod.launches = 0
     (_, _, _, _), (tq, tk, tv, tl) = _inputs(7, 2, 40, 4, 2, 16, "float32")

@@ -1012,7 +1012,7 @@ LM_SMALL = dict(d_model=64, n_heads=4, head_dim=16, d_ff=128, vocab=128,
                 ssm_state=16, ssm_head_dim=16, ssm_chunk=16, window=16)
 
 
-def _small_lm(arch, device):
+def _small_lm(arch, device, **extra):
     from repro_torch.models import build_model, get_config
     cfg = get_config(arch)
     n_layers = cfg.shared_attn_period * 2 if cfg.shared_attn_period \
@@ -1021,7 +1021,7 @@ def _small_lm(arch, device):
     cfg = cfg.replace(n_layers=n_layers, n_kv_heads=kv,
                       query_pre_attn_scalar=16.0
                       if cfg.query_pre_attn_scalar else None,
-                      **{k: v for k, v in LM_SMALL.items()
+                      **{k: v for k, v in {**LM_SMALL, **extra}.items()
                          if k != "window" or cfg.window})
     return build_model(cfg, device=device)
 
@@ -1074,11 +1074,14 @@ def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "zamba2-2.7b",
-                                  "qwen2-moe-a2.7b", "xlstm-125m"])
+                                  "qwen2-moe-a2.7b", "xlstm-125m",
+                                  "granite-8b"])
 def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
     """fp32: the engine on the card yields the CPU engine's greedy tokens,
     on the bucketed path (gemma2, whose local layers' window of 16 the
-    sequences outgrow; qwen2-moe) and the exact one (zamba2, xlstm)."""
+    sequences outgrow; qwen2-moe; granite at width 4) and the exact one
+    (zamba2, xlstm).  On the card the decode steps replay CUDA graphs."""
+    from repro_torch.launch import steps
     from repro_torch.models import layers as L
     from repro_torch.serving import Request, ServingEngine
     cpu = _small_lm(arch, "cpu")
@@ -1088,14 +1091,104 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
     rng = np.random.default_rng(13)
     prompts = [rng.integers(0, 128, n) for n in (16, 8, 32, 16, 4)]
     tokens = []
+    width = 4 if arch == "granite-8b" else 2
     for model, p in ((cpu, params), (card, dparams)):
-        eng = ServingEngine(model, p, width=2, max_len=64)
+        eng = ServingEngine(model, p, width=width, max_len=64)
         for i, prompt in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=12))
         eng.warmup()
+        replays = steps.graph_replays
         tokens.append([r.tokens for r in sorted(eng.run(),
                                                 key=lambda r: r.rid)])
     assert tokens[0] == tokens[1]
+    assert steps.graph_replays > replays
+
+
+def _zero_slot(cache, slot):
+    """A re-admitted slot's recurrent state zeroed (batch is axis 1 of
+    every leaf); its K/V rows past the new length are stale, as in the
+    engine's pool."""
+    for sub in cache.values():
+        for key, leaf in sub.items():
+            if key not in ("k", "v"):
+                for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+                    t[:, slot].zero_()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["granite-8b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b"])
+def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
+    """64 ragged ticks of ``make_decode_step`` (CUDA graphs cut at each
+    ``decode_attention`` launch) against ``model.decode_step`` + argmax on
+    a copy of the same cache, fed the same tokens, with a slot released
+    and re-admitted every 8 ticks: equal tokens, logits within the
+    engine's 3e-2, the caller's cache handed back; each tick launches the
+    eager step's ``decode_attention`` calls, all through the name
+    ``layers.decode_attention``, and replays once; one capture, and one
+    more for a second cache."""
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+    # the bf16 kernel takes head_dim 32 and up
+    model = _small_lm(arch, cuda, head_dim=32)
+    params = model.init(seed=5, dtype=dtype)
+    B, max_len, ticks = 4, 96, 64
+    rng = np.random.default_rng(21)
+    cache = model.init_cache(B, max_len)
+    prompt = torch.from_numpy(rng.integers(0, 128, (B, 16), dtype=np.int32))
+    decode = steps.make_decode_step(model)
+    lengths = np.array([16, 9, 3, 12], np.int32)
+    tok = rng.integers(0, 128, (B, 1)).astype(np.int32)
+    captures = steps.graph_captures
+    real, seen = L.decode_attention, []
+
+    def counted(*a, **kw):
+        seen.append(kw.get("out") is not None)
+        return real(*a, **kw)
+
+    with torch.no_grad():
+        _, cache = model.prefill(params, prompt.to(cuda), cache)
+        eager = L.tree_map(torch.clone, cache)
+        for t in range(ticks):
+            if t and t % 8 == 0:
+                slot = t // 8 % B
+                lengths[slot] = rng.integers(1, 8)
+                tok[slot] = rng.integers(0, 128)
+                _zero_slot(cache, slot)
+                _zero_slot(eager, slot)
+            tt = torch.from_numpy(tok).to(cuda)
+            ll = torch.from_numpy(lengths).to(cuda)
+            launched, replays = da_mod.launches, steps.graph_replays
+            L.decode_attention, seen[:] = counted, []
+            try:
+                got_tok, got_logits, out = decode(params, cache, tt, ll)
+            finally:
+                L.decode_attention = real
+            graphed = da_mod.launches - launched
+            want_logits, eager = model.decode_step(params, tt, eager, ll)
+            want_tok = torch.argmax(want_logits[:, -1], dim=-1) \
+                .to(torch.int32)[:, None]
+            assert graphed == da_mod.launches - launched - graphed > 0
+            assert seen == [t > 0] * graphed
+            assert steps.graph_replays - replays == (1 if t else 0)
+            assert out is cache
+            assert torch.equal(got_tok, want_tok), t
+            assert _rel(got_logits, want_logits.cpu()) <= 3e-2, t
+            tok = want_tok.cpu().numpy()
+            lengths += 1
+        assert steps.graph_captures == captures + 1
+        other = L.tree_map(torch.clone, cache)
+        tracing.start()
+        try:
+            for _ in range(2):
+                decode(params, other, tt, ll)
+        finally:
+            tracing.stop()
+    assert steps.graph_captures == captures + 2
+    recs = [r for r in tracing.spans() if r["name"] == "step.decode"]
+    tracing.clear()
+    assert [r["attrs"] for r in recs[-2:]] == [{"graphed": False},
+                                               {"graphed": True}]
 
 
 def test_lm_at_head_dim_256_fits_the_card(cuda):
