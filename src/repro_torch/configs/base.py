@@ -23,6 +23,7 @@ class ModelConfig:
     pattern: tuple[tuple[str, ...], ...] = (("attn", "mlp"),)
 
     norm: str = "rmsnorm"             # rmsnorm | layernorm
+    norm_eps: float = 1e-6            # RMSNorm's epsilon
     activation: str = "gelu"
     mlp_gated: bool = True
     rope_theta: float = 10000.0
@@ -50,6 +51,19 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 128
     shared_attn_period: int = 0       # zamba2: shared attn every N layers
+    ssm_groups: int = 1               # Mamba-2 groups of heads sharing B, C
+    ssm_gate_before_norm: bool = False  # norm(y * silu(z)) per group
+    # dt_bias held as the offset from Mamba-2's initial one: softplus^-1 of
+    # dt log-spaced over the heads across this (time_step_min, _max) range
+    ssm_dt_range: tuple[float, float] | None = None
+    # shared blocks before the layers at these positions (not a period):
+    # application k runs block k % n_shared_blocks over concat(x, embedding),
+    # adds its own LoRA of shared_adapter_rank to the MLP's gate and up
+    # projections and its own d x d output linear, and its output joins the
+    # next layer's input, not the residual
+    hybrid_layer_ids: tuple[int, ...] = ()
+    n_shared_blocks: int = 1
+    shared_adapter_rank: int = 0
 
     # encoder-decoder (whisper)
     is_encdec: bool = False
@@ -80,6 +94,14 @@ class ModelConfig:
         return self.n_layers // len(self.pattern)
 
     @property
+    def n_shared_applications(self) -> int:
+        """Applications of the shared block(s) per pass: one per hybrid
+        position, or one per group of ``shared_attn_period`` layers."""
+        if self.hybrid_layer_ids:
+            return len(self.hybrid_layer_ids)
+        return self.n_groups if self.shared_attn_period else 0
+
+    @property
     def group_kinds(self) -> tuple[str, ...]:
         """Flattened sub-layer kinds of one scan group."""
         if self.shared_attn_period:
@@ -105,7 +127,8 @@ class ModelConfig:
                               + (3 * d * self.moe_shared_dff))
             elif k == "mamba2":
                 d_in = self.ssm_expand * d
-                per_group += d * (2 * d_in + 2 * self.ssm_state
+                per_group += d * (2 * d_in
+                                  + 2 * self.ssm_groups * self.ssm_state
                                   + d_in // self.ssm_head_dim) + d_in * d
             elif k == "mlstm":
                 d_in = 2 * d
@@ -116,6 +139,14 @@ class ModelConfig:
         if self.shared_attn_period:
             total += d * self.head_dim * (self.n_heads * 2
                                           + self.n_kv_heads * 2) + 3 * d * f
+        if self.hybrid_layer_ids:
+            d_attn = 2 * d                   # over concat(x, embedding)
+            block = (d_attn * self.head_dim * (self.n_heads
+                                               + 2 * self.n_kv_heads)
+                     + self.n_heads * self.head_dim * d + 3 * d * f)
+            per_app = d * d + self.shared_adapter_rank * (d + 2 * f)
+            total += (block * self.n_shared_blocks
+                      + per_app * self.n_shared_applications)
         if self.is_encdec:
             # encoder layers + decoder cross-attn (rough)
             total += self.encoder_layers * (4 * d * d + 2 * d * f)

@@ -50,8 +50,8 @@ SIGNATURES = {
                           ctypes.c_longlong, _P],
                          "da_error_string"),
     "ssd_scan": ("ssd_forward",
-                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                  _I, ctypes.c_longlong, _P],
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _P, _I, ctypes.c_longlong, _P],
                  "ssd_error_string"),
 }
 # further C functions of a source: name -> argtypes (all return int)

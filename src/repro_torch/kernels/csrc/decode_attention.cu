@@ -725,6 +725,7 @@ inline const void* mma_kernel(int hd) {
     case 64: return (const void*)da_mma_kernel<64>;
     case 80: return (const void*)da_mma_kernel<80>;
     case 128: return (const void*)da_mma_kernel<128>;
+    case 224: return (const void*)da_mma_kernel<224>;
     case 256: return (const void*)da_mma_kernel<256>;
     default: return nullptr;
   }
@@ -790,7 +791,7 @@ inline size_t footprint(int dtype, int G, int hd, int bk) {
 // aligned.  strides: 12 element strides, (batch, head, 1) for q, (batch,
 // sequence, head) for k and v, (batch, head, 1) for o.
 //
-// bfloat16 takes hd in {32, 64, 80, 128, 256}; the splits of
+// bfloat16 takes hd in {32, 64, 80, 128, 224, 256}; the splits of
 // tiles_per_split tiles of 64 rows must cover S, or with a window the
 // ceil(window / 64) + 1 tiles a row's window touches at most; block_k sets
 // the ring (stages = block_k / 64 + 1, at least 3); ws holds B * Hk *
@@ -831,7 +832,7 @@ extern "C" int da_forward(const void* q, const void* k, const void* v,
     return launch_mma<D>(q, k, v, lengths, starts, o, lse, ws, B, S, H, Hk, \
                          strides, bk, tiles_per_split, nsplit, softcap,     \
                          window, smem, s);
-      DA_HD(32) DA_HD(64) DA_HD(80) DA_HD(128) DA_HD(256)
+      DA_HD(32) DA_HD(64) DA_HD(80) DA_HD(128) DA_HD(224) DA_HD(256)
 #undef DA_HD
       default:
         return (int)cudaErrorInvalidValue;

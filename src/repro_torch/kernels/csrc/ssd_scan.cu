@@ -114,8 +114,8 @@ __global__ void __launch_bounds__(kThreads)
     ssd_kernel(const T* __restrict__ x, const A* __restrict__ la,
                const T* __restrict__ bm, const T* __restrict__ cm,
                T* __restrict__ y, float* __restrict__ fin, int S, int H, int P,
-               int N, Strides xs, Strides as, Strides bs, Strides cs,
-               Strides ys, int L) {
+               int N, int hpg, Strides xs, Strides as, Strides bs,
+               Strides cs, Strides ys, int L) {
   extern __shared__ float smem[];
   const int bn = N + 1;  // padded row stride of b and c
   float* Xs = smem;
@@ -130,8 +130,9 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x, b = blockIdx.y;
   const T* xb = x + b * xs.b + h * xs.h;
   const A* ab = la + b * as.b + h * as.h;
-  const T* bb = bm + b * bs.b + h * bs.h;
-  const T* cb = cm + b * cs.b + h * cs.h;
+  // head h reads the maps of its group, h / hpg (hpg heads a group)
+  const T* bb = bm + b * bs.b + (h / hpg) * bs.h;
+  const T* cb = cm + b * cs.b + (h / hpg) * cs.h;
   T* yb = y + b * ys.b + h * ys.h;
 
   for (int idx = threadIdx.x; idx < N * P; idx += blockDim.x) St[idx] = 0.f;
@@ -210,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
 template <class A>
 int launch_simt(const void* x, const void* la, const void* bm, const void* cm,
                 void* y, float* fin, int B, int S, int H, int P, int N,
-                const long long* st, int L, size_t smem,
+                int hpg, const long long* st, int L, size_t smem,
                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       ssd_kernel<float, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -222,7 +223,7 @@ int launch_simt(const void* x, const void* la, const void* bm, const void* cm,
   ssd_kernel<float, A><<<dim3(H, B), kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const A*>(la),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(y), fin, S, H, P, N, xs, as, bs, cs, ys, L);
+      static_cast<float*>(y), fin, S, H, P, N, hpg, xs, as, bs, cs, ys, L);
   return (int)cudaGetLastError();
 }
 
@@ -350,6 +351,7 @@ struct ChunkArgs {
   float* ws;     // (B, H, nc, N, P) states
   float* decay;  // (B, H, nc) exp(total)
   int S, H, P, N, L, Pp, Np, nc;
+  int hpg;  // heads a group of b and c: head h reads group h / hpg
   Strides xs, as, bs, cs, ys;
   int vx, vb, vc;  // rows may be copied as 16-byte pieces
   // b's rows are the first N columns of x's (N a multiple of 16), and c's
@@ -453,8 +455,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h, a.xs.s, t0, rows, L,
             a.P, a.Pp, a.vx);
   if (!a.bx)
-    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h, a.bs.s, t0, rows, L,
-              a.N, a.Np, a.vb);
+    load_rows(Bs, sn, a.b + bb * a.bs.b + (h / a.hpg) * a.bs.h, a.bs.s, t0,
+              rows, L, a.N, a.Np, a.vb);
   cp_async_commit();
   chunk_cumsum(w, static_cast<const A*>(a.la) + bb * a.as.b + h * a.as.h,
                a.as.s, t0, rows, L);
@@ -592,11 +594,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   load_rows(Xs, sx, a.x + bb * a.xs.b + h * a.xs.h, a.xs.s, t0, rows, L,
             a.P, a.Pp, a.vx);
   if (!a.bx)
-    load_rows(Bs, sn, a.b + bb * a.bs.b + h * a.bs.h, a.bs.s, t0, rows, L,
-              a.N, a.Np, a.vb);
+    load_rows(Bs, sn, a.b + bb * a.bs.b + (h / a.hpg) * a.bs.h, a.bs.s, t0,
+              rows, L, a.N, a.Np, a.vb);
   if (!a.cb)
-    load_rows(Cs, sn, a.c + bb * a.cs.b + h * a.cs.h, a.cs.s, t0, rows, L,
-              a.N, a.Np, a.vc);
+    load_rows(Cs, sn, a.c + bb * a.cs.b + (h / a.hpg) * a.cs.h, a.cs.s, t0,
+              rows, L, a.N, a.Np, a.vc);
   cp_async_commit();
   auto put = [&](int n, int p, float v) {  // S_in[n][p] as high and low
     const bf16 hi = __float2bfloat16(v);
@@ -1406,7 +1408,8 @@ int launch_chunked_p(const ChunkArgs& a, int B, float* fin,
 int launch_chunked_all(const void* x, const void* la, const void* bm,
                        const void* cm, void* y, float* fin, float* ws,
                        int la_dtype, int B, int S, int H, int P, int N,
-                       const long long* st, int L, cudaStream_t stream) {
+                       int hpg, const long long* st, int L,
+                       cudaStream_t stream) {
   ChunkArgs a;
   a.x = static_cast<const bf16*>(x);
   a.b = static_cast<const bf16*>(bm);
@@ -1418,6 +1421,7 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
   a.P = P;
   a.N = N;
   a.L = L;
+  a.hpg = hpg;
   a.Pp = round16(P);
   a.Np = round16(N);
   a.nc = (S + L - 1) / L;
@@ -1431,7 +1435,7 @@ int launch_chunked_all(const void* x, const void* la, const void* bm,
   a.vx = rows_vec(x, a.xs, P);
   a.vb = rows_vec(bm, a.bs, N);
   a.vc = rows_vec(cm, a.cs, N);
-  a.bx = bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
+  a.bx = hpg == 1 && bm == x && same(a.bs, a.xs) && N % 16 == 0 && N <= P;
   a.cb = cm == bm && same(a.cs, a.bs);
   return la_dtype == kFloat32 ? launch_chunked_p<float>(a, B, fin, stream)
                               : launch_chunked_p<bf16>(a, B, fin, stream);
@@ -1572,7 +1576,8 @@ int launch_wide_all(const void* x, const void* la, const void* bm,
 }  // namespace
 }  // namespace repro_torch
 
-// x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H, N); y: (B, S, H, P)
+// x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H / hpg, N), head h
+// reading group h / hpg (hpg 1 on the wide route); y: (B, S, H, P)
 // in x's dtype; final_state: (B, H, N, P) fp32, contiguous.  x, b, c, y
 // share the dtype code `dtype` and have a contiguous last axis; log_a has
 // the dtype code `la_dtype`.  strides: 15 element strides, (batch,
@@ -1590,13 +1595,13 @@ int launch_wide_all(const void* x, const void* la, const void* bm,
 extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
                            const void* c, void* y, void* final_state,
                            void* workspace, int dtype, int la_dtype, int B,
-                           int S, int H, int P, int N,
+                           int S, int H, int P, int N, int hpg,
                            const long long* strides, int L,
                            long long smem_bytes, void* stream) {
   using namespace repro_torch;
   if ((dtype != kFloat32 && dtype != kBFloat16) ||
       (la_dtype != kFloat32 && la_dtype != kBFloat16) || L < 1 || S < 1 ||
-      P < 1 || N < 1 || H > 65535 || B > 65535)
+      P < 1 || N < 1 || H > 65535 || B > 65535 || hpg < 1 || H % hpg)
     return (int)cudaErrorInvalidValue;
   float* fin = static_cast<float*>(final_state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1605,20 +1610,22 @@ extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
     if ((long long)smem != smem_bytes) return (int)cudaErrorInvalidValue;
     return la_dtype == kFloat32
                ? launch_simt<float>(x, log_a, b, c, y, fin, B, S, H, P, N,
-                                    strides, L, smem, s)
+                                    hpg, strides, L, smem, s)
                : launch_simt<bf16>(x, log_a, b, c, y, fin, B, S, H, P, N,
-                                   strides, L, smem, s);
+                                   hpg, strides, L, smem, s);
   }
   if (L % 16 || L > kMaxChunk || P > kMaxWidth || N > kMaxWidth ||
       (wide_route(P, N) && L > kWideMaxChunk) ||
       (long long)chunked_smem(L, P, N) != smem_bytes)
     return (int)cudaErrorInvalidValue;
-  if (wide_route(P, N))
+  if (wide_route(P, N)) {
+    if (hpg != 1) return (int)cudaErrorInvalidValue;
     return launch_wide_all(x, log_a, b, c, y, fin, workspace, la_dtype, B, S,
                            H, P, N, strides, L, s);
+  }
   return launch_chunked_all(x, log_a, b, c, y, fin,
                             static_cast<float*>(workspace), la_dtype, B, S, H,
-                            P, N, strides, L, s);
+                            P, N, hpg, strides, L, s);
 }
 
 extern "C" const char* ssd_error_string(int code) {

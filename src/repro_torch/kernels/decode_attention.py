@@ -50,7 +50,7 @@ launches = 0
 
 THREADS = 256           # csrc/decode_attention.cu kThreads (fp32 route)
 WARPS = THREADS // 32
-MMA_HEAD_DIMS = (32, 64, 80, 128, 256)   # head_dims of the bf16 route
+MMA_HEAD_DIMS = (32, 64, 80, 128, 224, 256)   # head_dims of the bf16 route
 TILE_ROWS = 64          # cache rows of a ring stage (bf16 route)
 GROUP_ROWS = 16         # query heads of one m16 tile (bf16 route)
 

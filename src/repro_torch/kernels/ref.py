@@ -122,7 +122,8 @@ def merge_weighted(num, den, dtype):
 def ssd_ref(x, log_a, b, c, *, chunk=128):
     """Mamba-2 SSD as the chunked scan the kernel runs.
 
-    x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H, N).
+    x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H, N), or (B, S, G,
+    N) for G groups of H / G heads each (broadcast to their heads here).
     Returns (y: (B, S, H, P) in x's dtype, final_state: (B, H, N, P) fp32).
 
     The sequence is padded to whole chunks with ``log_a = 0`` and
@@ -134,6 +135,9 @@ def ssd_ref(x, log_a, b, c, *, chunk=128):
     """
     B, S, H, P = x.shape
     N = b.shape[-1]
+    if b.shape[2] != H:
+        b = b.repeat_interleave(H // b.shape[2], dim=2)
+        c = c.repeat_interleave(H // c.shape[2], dim=2)
     L = min(chunk, S)
     S_p = round_up(S, L)
     nc = S_p // L

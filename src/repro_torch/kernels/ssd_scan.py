@@ -22,6 +22,14 @@ back.  Three routes:
   states take each way;
 * fp32: the SIMT kernel, one CTA per (batch, head) walking the chunks.
 
+b and c may hold one map per head, one shared by all heads (a stride-0
+view), or one per group of H / G heads, (B, S, G, N): the narrow and fp32
+routes read head h's map at group h // (H / G), so no per-head copy is
+made; the wide route takes them copied to the heads.  A sequence that is
+no multiple of the chunk is padded in the last chunk with steps that leave
+the state as it is, and their outputs are dropped: each call counts them
+under the ``ssd_pad_positions`` counter of :mod:`..tracing`.
+
 ``launches`` counts calls that launched a kernel (a route's passes count
 once); ``wide_launches`` counts those of them that took the wide route.
 
@@ -31,8 +39,9 @@ and an input that requires grad), a CUDA call goes through
 differentiates the plain version recomputed from the saved inputs, the
 function the reference's models differentiate; ``backward_launches``
 counts those recomputations.  Each call is a ``kernel.ssd_scan`` span of
-:mod:`..tracing`, each backward a ``kernel.ssd_scan.backward``
-span with CUDA events.
+:mod:`..tracing` (``groups``, and ``pad``: the padded positions of the last
+chunk), each backward a ``kernel.ssd_scan.backward`` span with CUDA
+events.
 """
 
 from __future__ import annotations
@@ -244,20 +253,29 @@ def tma_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_scan(x, log_a, b, c, *, chunk=128):
-    """x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, H, N).
+    """x: (B, S, H, P); log_a: (B, S, H); b, c: (B, S, G, N), G = H, or G
+    dividing H: head h reads group h // (H / G).
 
     Returns (y: (B, S, H, P) in x's dtype, final_state: (B, H, N, P) fp32).
     ``S`` need not divide the chunk length.
     """
-    with tracing.span("kernel.ssd_scan"):
+    with tracing.span("kernel.ssd_scan") as sp:
         if x.ndim != 4 or log_a.shape != x.shape[:3] or b.ndim != 4 or \
-                b.shape != c.shape or b.shape[:3] != x.shape[:3]:
+                b.shape != c.shape or b.shape[:2] != x.shape[:2] or \
+                x.shape[2] % b.shape[2]:
             raise ValueError(f"expected x (B,S,H,P), log_a (B,S,H), b, c "
-                             f"(B,S,H,N), got {tuple(x.shape)}, "
-                             f"{tuple(log_a.shape)}, {tuple(b.shape)}, "
-                             f"{tuple(c.shape)}")
+                             f"(B,S,G,N) with G dividing H, got "
+                             f"{tuple(x.shape)}, {tuple(log_a.shape)}, "
+                             f"{tuple(b.shape)}, {tuple(c.shape)}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        # the padded steps of the last chunk: of the kernel's chunk length
+        # on the card, of min(chunk, S) in the plain version
+        S = x.shape[1]
+        pad = -S % (chunk_length(chunk, S, x.dtype) if x.is_cuda
+                    else min(chunk, S))
+        sp.set(groups=b.shape[2], pad=pad)
+        tracing.count("ssd_pad_positions", pad)
         if sharded.is_dtensor(x):
             return sharded.ssd_scan(ssd_scan, x, log_a, b, c, chunk=chunk)
         if x.device.type in ("cpu", "meta"):
@@ -309,7 +327,7 @@ def _launch(x, log_a, b, c, chunk):
     if not (log_a.device == b.device == c.device == x.device):
         raise ValueError("x, log_a, b, c must be on one device")
     B, S, H, P = x.shape
-    N = b.shape[-1]
+    G, N = b.shape[2], b.shape[3]
     shapes = (x.shape, b.shape)
     reason = check_launch({"chunk": chunk}, shapes, x.dtype,
                           card_smem_limit(x.device))
@@ -320,6 +338,9 @@ def _launch(x, log_a, b, c, chunk):
     nbytes = smem_bytes(params, shapes, x.dtype)
     is_wide = x.dtype == torch.bfloat16 and wide(P, N)
     if is_wide:
+        if G != H:      # the wide route's maps hold one map a head
+            b, c, G = (b.repeat_interleave(H // G, dim=2),
+                       c.repeat_interleave(H // G, dim=2), H)
         x, b, c = (tma_ready(t) for t in (x, b, c))
     else:
         x, b, c = (t if t.stride(-1) == 1 else t.contiguous()
@@ -332,7 +353,7 @@ def _launch(x, log_a, b, c, chunk):
         x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), fin.data_ptr(), ws.data_ptr(),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[log_a.dtype], B, S,
-        H, P, N, _build.strides(x, log_a, b, c, y), L, nbytes,
+        H, P, N, H // G, _build.strides(x, log_a, b, c, y), L, nbytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
     launches += 1

@@ -55,6 +55,9 @@ def _tree_bytes(tree) -> int:
 def lm_to_graph(model: DecoderLM, params, *, batch: int, seq_len: int
                 ) -> LayerGraph:
     cfg = model.cfg
+    if cfg.hybrid_layer_ids:
+        raise NotImplementedError(f"{cfg.name}: lm_to_graph has no node for "
+                                  "the published Zamba2 shared blocks")
     g = LayerGraph(cfg.name)
     prev = g.input(TensorSpec((batch, seq_len), torch.int32), name="tokens")
 

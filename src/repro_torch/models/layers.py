@@ -201,7 +201,10 @@ def rmsnorm_spec(d: int) -> dict:
     return {"scale": Pm((d,), ("unsharded",), init="zeros")}  # (1+scale) form
 
 
-def rmsnorm(p, x, eps: float = 1e-6):
+RMS_EPS = 1e-6
+
+
+def rmsnorm(p, x, eps: float = RMS_EPS):
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
@@ -439,15 +442,35 @@ def mlp_spec(d_model: int, d_ff: int, gated: bool) -> dict:
     return spec
 
 
+# "gelu" is the tanh form the reference's models use; "gelu_erf" the exact
+# one (Hugging Face's "gelu")
 _ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="tanh"),
-                "silu": F.silu, "relu": F.relu}
+                "gelu_erf": F.gelu, "silu": F.silu, "relu": F.relu}
 
 
-def mlp(p, x, activation: str = "gelu"):
+def adapter_spec(d_model: int, d_ff: int, rank: int) -> dict:
+    """A LoRA on a gated MLP's gate and up projections: ``x a`` of width
+    ``rank``, then one product each back to ``d_ff``."""
+    return {"lora_a": Pm((d_model, rank), ("embed", None)),
+            "lora_gate": Pm((rank, d_ff), (None, "ff")),
+            "lora_up": Pm((rank, d_ff), (None, "ff"))}
+
+
+def mlp(p, x, activation: str = "gelu", adapter=None):
+    """A (gated) MLP; ``adapter`` (:func:`adapter_spec`'s tree) adds its
+    low-rank terms to the gate and up projections."""
     act = _ACTIVATIONS[activation]
-    h = matmul(x, p["w_up"])
+    r = None if adapter is None else matmul(x, adapter["lora_a"])
+
+    def project(name):
+        # a temporary, so that the gate's pre-activation is freed once
+        # the activation is taken (one d_ff-wide tensor at the peak)
+        y = matmul(x, p[name])
+        return y if r is None else y + matmul(r, adapter["lora_" + name[2:]])
+
+    h = project("w_up")
     if "w_gate" in p:
-        h = act(matmul(x, p["w_gate"])) * h
+        h = act(project("w_gate")) * h
     else:
         h = act(h)
     h = constrain(h, "act_batch", None, "act_ff")

@@ -5,8 +5,17 @@ The config's ``pattern`` lists each layer's sub-layer kinds; the stack is a
 Python loop over *groups* (one pattern repetition) whose parameters are
 stacked along a leading axis, as the reference's ``lax.scan`` carries them.
 zamba2-style shared blocks live outside the stack and are applied once per
-group.  Caches are preallocated stacked tensors ``(G, B, ...)`` that the
-steps write in place (and return).
+group.  The published Zamba2 form (``cfg.hybrid_layer_ids``) runs one
+Mamba-2 layer a group and, before each layer listed there, one of
+``n_shared_blocks`` blocks in turn over ``concat(x, embedding)``, with
+the application's own LoRA and output linear (stacked ``(13, ...)`` as
+``shared_adapters``); its output joins that layer's input, ``x + Mamba(
+norm(x + T))``, and each application keeps its own KV cache.  Each
+application is a ``zamba2.shared_block`` span of :mod:`..tracing`
+(``block``, ``application``, ``tokens``; CUDA events outside decode) and
+adds one to the ``shared_applications`` counter.  Caches are preallocated
+stacked tensors ``(G, B, ...)`` that the steps write in place (and
+return).
 
 Execution modes:
 * ``forward``      — full-sequence pass, no cache,
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .._device import resolve_device
 from ..core.graph import TensorSpec
 from ..runtime.sharding import constrain
@@ -76,11 +86,18 @@ def _sub_spec(cfg, kind: str) -> dict:
 
 
 def _norm(cfg):
-    return L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
+    if cfg.norm != "rmsnorm":
+        return L.layernorm
+    if cfg.norm_eps == L.RMS_EPS:
+        return L.rmsnorm
+    return lambda p, x: L.rmsnorm(p, x, cfg.norm_eps)
 
 
-def apply_sublayer(cfg, kind, p, x, *, positions, cache, cache_len, mode):
-    """Returns (x, cache, aux); a cache is written in place."""
+def apply_sublayer(cfg, kind, p, x, *, positions, cache, cache_len, mode,
+                   inject=None):
+    """Returns (x, cache, aux); a cache is written in place.  ``inject``
+    (a shared block's output) joins a recurrent layer's input, not the
+    residual: ``x + core(norm(x + inject))``."""
     normf = _norm(cfg)
 
     if kind in ("attn", "attn_local"):
@@ -116,7 +133,7 @@ def apply_sublayer(cfg, kind, p, x, *, positions, cache, cache_len, mode):
     fresh = mode == "prefill" and isinstance(cache_len, int) and \
         cache_len == 0
     if kind in ("mamba2", "mlstm"):
-        h = normf(p["norm"], x)
+        h = normf(p["norm"], x if inject is None else x + inject)
         core, key = (mamba2, "ssm") if kind == "mamba2" else (mlstm, "mat")
         st = {} if fresh or cache is None else cache
         h, (ssm_st, conv_st) = core(p["core"], cfg, h, state=st.get(key),
@@ -202,6 +219,10 @@ class DecoderLM:
         unknown = sorted(set(self.kinds) - KINDS)
         if unknown:
             raise ValueError(f"{cfg.name}: unknown sub-layer kinds {unknown}")
+        if cfg.hybrid_layer_ids and self.kinds != ["mamba2"]:
+            raise ValueError(f"{cfg.name}: hybrid_layer_ids place shared "
+                             f"blocks before single Mamba-2 layers, got "
+                             f"groups of {self.kinds}")
         self.sub_names = [f"s{i}_{k}" for i, k in enumerate(self.kinds)]
         self.device = resolve_device(device)
 
@@ -226,7 +247,28 @@ class DecoderLM:
                 "norm2": norm_spec,
                 "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated),
             }
+        if cfg.hybrid_layer_ids:
+            spec.update(self._hybrid_spec())
         return spec
+
+    def _hybrid_spec(self) -> dict:
+        """The published Zamba2 blocks (stacked by block) and each
+        application's adapter and output linear (stacked by application)."""
+        cfg = self.cfg
+        d = cfg.d_model
+        d_attn = 2 * d                       # over concat(x, embedding)
+        attn = L.attention_spec(d_attn, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim)
+        attn["wo"] = L.Pm((cfg.n_heads, cfg.head_dim, d),
+                          ("heads", "head_dim", "embed"))
+        block = {"norm1": L.make_norm(cfg.norm, d_attn)[0], "attn": attn,
+                 "norm2": L.make_norm(cfg.norm, d)[0],
+                 "mlp": L.mlp_spec(d, cfg.d_ff, gated=cfg.mlp_gated)}
+        adapter = {**L.adapter_spec(d, cfg.d_ff, cfg.shared_adapter_rank),
+                   "linear": L.Pm((d, d), ("embed", None))}
+        return {"shared_blocks": L.stack_spec(block, cfg.n_shared_blocks),
+                "shared_adapters": L.stack_spec(
+                    adapter, cfg.n_shared_applications)}
 
     def init(self, seed: int = 0, dtype=torch.bfloat16):
         return L.init_tree(self.spec(), seed, dtype, self.device)
@@ -248,9 +290,10 @@ class DecoderLM:
                 out[n] = L.tree_map(
                     lambda t: TensorSpec((cfg.n_groups, *t.shape), t.dtype),
                     sub)
-        if cfg.shared_attn_period:
+        if cfg.n_shared_applications:
             kv = L.attention_cache_spec(cfg, batch, max_len)
-            stacked = TensorSpec((cfg.n_groups, *kv.shape), kv.dtype)
+            stacked = TensorSpec((cfg.n_shared_applications, *kv.shape),
+                                 kv.dtype)
             out["shared_attn"] = {"k": stacked, "v": stacked}
         return out
 
@@ -262,7 +305,7 @@ class DecoderLM:
             sub = _sub_cache_axes(self.cfg, k)
             if sub is not None:
                 out[n] = _stack_axes(sub)
-        if self.cfg.shared_attn_period:
+        if self.cfg.n_shared_applications:
             kv = _stack_axes(L.attention_cache_axes(self.cfg))
             out["shared_attn"] = {"k": kv, "v": kv}
         return out
@@ -274,13 +317,15 @@ class DecoderLM:
 
     # -- stack ---------------------------------------------------------------
     def _apply_group(self, params_g, shared, x, cache_g, *, positions,
-                     cache_len, mode):
+                     cache_len, mode, inject=None):
         aux = 0.0
         for n, k in zip(self.sub_names, self.kinds):
             c = cache_g.get(n) if cache_g else None
             x, _, a = apply_sublayer(self.cfg, k, params_g[n], x,
                                      positions=positions, cache=c,
-                                     cache_len=cache_len, mode=mode)
+                                     cache_len=cache_len, mode=mode,
+                                     inject=inject)
+            inject = None
             aux = aux + a
         if shared is not None:
             normf = _norm(self.cfg)
@@ -294,17 +339,62 @@ class DecoderLM:
             x = x + L.mlp(shared["mlp"], h, activation=self.cfg.activation)
         return x, cache_g, aux
 
+    def _apply_shared(self, block, adapter, k: int, x, e, cache, *,
+                      positions, cache_len, mode):
+        """Application ``k`` of a published Zamba2 block: attention over
+        ``norm(concat(x, e))`` (no residual), a norm, the gated MLP with the
+        application's LoRA, then its output linear."""
+        cfg = self.cfg
+        normf = _norm(cfg)
+        B, S = x.shape[:2]
+        timed = x.is_cuda and mode != "decode" and \
+            not torch.cuda.is_current_stream_capturing()
+        with tracing.span("zamba2.shared_block", device=timed,
+                          block=k % cfg.n_shared_blocks, application=k,
+                          tokens=B * S):
+            h = torch.cat([x, e], dim=-1)
+            h, _ = L.attention(block["attn"], normf(block["norm1"], h),
+                               positions=positions,
+                               rope_theta=cfg.rope_theta, causal=True,
+                               kv_cache=cache, cache_len=cache_len,
+                               query_pre_attn_scalar=cfg.query_pre_attn_scalar)
+            h = L.mlp(block["mlp"], normf(block["norm2"], h),
+                      activation=cfg.activation, adapter=adapter)
+            out = L.matmul(h, adapter["linear"])
+        tracing.count("shared_applications")
+        return out
+
     def _stack(self, params, x, caches, *, positions, cache_len, mode):
+        cfg = self.cfg
         shared = params.get("shared_block")
-        group = self._apply_group
-        if self.cfg.remat and L.grad_needed(params, x):
-            group = L.remat(group)     # recomputed in the backward
+        group, apply_shared = self._apply_group, self._apply_shared
+        if cfg.remat and L.grad_needed(params, x):
+            # recomputed in the backward
+            group, apply_shared = L.remat(group), L.remat(apply_shared)
+        # the published Zamba2 form: layer index -> application, the
+        # embedding carried beside the stack, the applications' caches
+        # apart from the layers'
+        hybrid = {gi: k for k, gi in enumerate(cfg.hybrid_layer_ids)}
+        e = x if hybrid else None
+        layer_caches = caches
+        if hybrid and caches is not None:
+            layer_caches = {n: c for n, c in caches.items()
+                            if n != "shared_attn"}
         aux = 0.0
-        for gi in range(self.cfg.n_groups):
-            cg = None if caches is None else _index(caches, gi)
+        for gi in range(cfg.n_groups):
+            cg = None if caches is None else _index(layer_caches, gi)
+            t = None
+            if gi in hybrid:
+                k = hybrid[gi]
+                ck = None if caches is None else \
+                    _index(caches["shared_attn"], k)
+                t = apply_shared(
+                    _index(params["shared_blocks"], k % cfg.n_shared_blocks),
+                    _index(params["shared_adapters"], k), k, x, e, ck,
+                    positions=positions, cache_len=cache_len, mode=mode)
             x, _, a = group(_index(params["layers"], gi), shared, x, cg,
                             positions=positions, cache_len=cache_len,
-                            mode=mode)
+                            mode=mode, inject=t)
             aux = aux + a
         return x, caches, aux
 

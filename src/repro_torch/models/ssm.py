@@ -4,13 +4,18 @@
 ``kernels.ssd_scan`` (the hand-written kernel on the card, its plain version
 on the CPU) and adds what the kernel lacks in exact linear terms outside it:
 head-shared b, c (Mamba-2's ngroups = 1) are broadcast to the heads as
-stride-0 views, which the kernel reads as they are, and an initial state s0
-adds ``exp(cumsum(log_a)) (c . s0)`` to y and ``exp(sum(log_a)) s0`` to the
-final state.  :func:`ssd_decode_step` is the reference's one-token
-recurrence, plain PyTorch as there.
+stride-0 views, which the kernel reads as they are; b, c of G groups
+(ngroups = G, H / G heads a group) go to the kernel as they are, read by
+group; and an initial state s0 adds ``exp(cumsum(log_a)) (c . s0)`` to y
+and ``exp(sum(log_a)) s0`` to the final state.  Any sequence length
+prefills: the kernel pads the last chunk with steps that leave the state
+as it is, and drops their outputs.  :func:`ssd_decode_step` is the
+reference's one-token recurrence, plain PyTorch as there.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,29 +36,29 @@ def ssd(x, log_a, b, c, *, chunk: int | None = None, initial_state=None):
 
     x:      (B, S, H, P)    inputs (already gated / dt-scaled)
     log_a:  (B, S, H)       per-step log decay (<= 0)
-    b:      (B, S, Hb, N)   input maps  ("K"); Hb == H, or Hb == 1 for
-    c:      (B, S, Hb, N)   head-shared maps (Mamba-2 ngroups=1)
+    b:      (B, S, Hb, N)   input maps  ("K"); Hb == H, Hb == 1 for
+    c:      (B, S, Hb, N)   head-shared maps (Mamba-2 ngroups=1), or Hb
+                            groups of H / Hb heads each
     initial_state: (B, H, N, P) fp32 or None
     returns (y: (B, S, H, P), final_state: (B, H, N, P) fp32)
 
     ``chunk=None`` resolves to the adopted tuned ``ssd_scan`` ``chunk``
     (``kernels/substrate.adopt_tuned_params``), else the kernel's default;
-    model configs that pin ``ssm_chunk`` pass it explicitly.  As in the
-    reference, ``S`` must be a multiple of ``min(chunk, S)``.
+    model configs that pin ``ssm_chunk`` pass it explicitly.  ``S`` need
+    not be a multiple of ``min(chunk, S)``: the last chunk is padded with
+    identity steps (x = 0, log_a = 0, b = c = 0), whose outputs are dropped.
     """
     if chunk is None:
         chunk = serving_param("ssd_scan", "chunk",
                               DEFAULT_PARAMS["ssd_scan"]["chunk"])
     B, S, H, P = x.shape
     Hb, N = b.shape[-2], b.shape[-1]
-    L = min(chunk, S)
-    if S % L:
-        raise ValueError(f"ssd: the sequence {S} is not a multiple of the "
-                         f"chunk {L}")
+    if H % Hb:
+        raise ValueError(f"ssd: {Hb} groups of b, c do not divide {H} heads")
     shared = Hb == 1
     bh = b.expand(B, S, H, N) if shared else b
     ch = c.expand(B, S, H, N) if shared else c
-    y, final = ssd_scan(x, log_a, bh, ch, chunk=L)
+    y, final = ssd_scan(x, log_a, bh, ch, chunk=min(chunk, S))
     if initial_state is None:
         return y, final
 
@@ -62,10 +67,22 @@ def ssd(x, log_a, b, c, *, chunk: int | None = None, initial_state=None):
     if shared:
         cs0 = torch.einsum("bsn,bhnp->bshp", c[:, :, 0].float(), s0)
     else:
-        cs0 = torch.einsum("bshn,bhnp->bshp", c.float(), s0)
+        cs0 = torch.einsum("bshn,bhnp->bshp",
+                           heads_of(c, H).float(), s0)
     y = (y.float() + torch.exp(seg)[..., None] * cs0).to(x.dtype)
     final = final + torch.exp(seg[:, -1])[..., None, None] * s0
     return y, final
+
+
+def heads_of(t, H: int):
+    """(B, S, G, N) maps of G groups as (B, S, H, N), one per head (a view
+    where G is 1 or H, else a copy)."""
+    G = t.shape[2]
+    if G == H:
+        return t
+    if G == 1:
+        return t.expand(*t.shape[:2], H, t.shape[3])
+    return t.repeat_interleave(H // G, dim=2)
 
 
 def ssd_decode_step(state, x, log_a, b, c):
@@ -89,17 +106,16 @@ def ssd_decode_step(state, x, log_a, b, c):
 def mamba2_dims(cfg):
     d_inner = cfg.ssm_expand * cfg.d_model
     nheads = d_inner // cfg.ssm_head_dim
-    conv_dim = d_inner + 2 * cfg.ssm_state
+    conv_dim = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     return d_inner, nheads, conv_dim
 
 
 def mamba2_spec(cfg) -> dict:
     d = cfg.d_model
     d_inner, H, conv_dim = mamba2_dims(cfg)
-    N = cfg.ssm_state
     return {
-        # fused input projection: [z, x, B, C, dt]
-        "w_in": Pm((d, 2 * d_inner + 2 * N + H), ("embed", "ff")),
+        # fused input projection: [z, x, B, C, dt], B and C G N wide
+        "w_in": Pm((d, d_inner + conv_dim + H), ("embed", "ff")),
         "conv_w": Pm((cfg.ssm_conv, conv_dim), ("conv", "ff"), scale=0.5),
         "conv_b": Pm((conv_dim,), ("ff",), init="zeros"),
         "a_log": Pm((H,), ("heads",), init="zeros"),
@@ -111,9 +127,43 @@ def mamba2_spec(cfg) -> dict:
 
 
 def _split_in(cfg, h):
-    d_inner, H, _ = mamba2_dims(cfg)
-    N = cfg.ssm_state
-    return torch.split(h, [d_inner, d_inner + 2 * N, H], dim=-1)
+    d_inner, H, conv_dim = mamba2_dims(cfg)
+    return torch.split(h, [d_inner, conv_dim, H], dim=-1)
+
+
+_DT_OFFSETS: dict = {}
+
+
+def dt_offset(cfg, H: int, device) -> torch.Tensor | None:
+    """Mamba-2's initial dt_bias, ``softplus^-1(dt)`` with dt log-spaced
+    over the H heads across ``cfg.ssm_dt_range`` (the published
+    initialisation draws each head's dt log-uniformly there), or None.
+    With it, ``dt_bias`` is held as the offset from that value, as each
+    RMSNorm weight is held as the offset from 1: a draw of zeros is the
+    published initial state.  Built once per range, H and device (not
+    while a CUDA graph is captured, whose pool would own it) and kept."""
+    if cfg.ssm_dt_range is None:
+        return None
+    key = (tuple(cfg.ssm_dt_range), H, torch.device(device))
+    out = _DT_OFFSETS.get(key)
+    if out is None:
+        lo, hi = (math.log(v) for v in cfg.ssm_dt_range)
+        dt = torch.exp(torch.linspace(lo, hi, H, device=device))
+        out = dt + torch.log(-torch.expm1(-dt))
+        if not (out.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _DT_OFFSETS[key] = out
+    return out
+
+
+def _gated_norm(p, y, z, groups: int, eps: float):
+    """RMSNorm of ``y * silu(z)`` over each of ``groups`` equal groups of
+    channels, in fp32, scaled by ``1 + scale``: Mamba-2's gated norm with
+    the gate applied first."""
+    dt = y.dtype
+    h = y.float() * F.silu(z.float())
+    h = unflatten(h, -1, (groups, h.shape[-1] // groups))
+    h = h * torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + eps)
+    return (flatten(h, -2, -1) * (1.0 + p["scale"].float())).to(dt)
 
 
 def _causal_conv(w, bias, x, state=None):
@@ -139,16 +189,21 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
     """
     B, S, D = x.shape
     d_inner, H, conv_dim = mamba2_dims(cfg)
-    N = cfg.ssm_state
+    N, G = cfg.ssm_state, cfg.ssm_groups
     P = cfg.ssm_head_dim
 
     h = constrain(matmul(x, p["w_in"]), "act_batch", None, "act_ff")
     z, xbc, dt = _split_in(cfg, h)
     xbc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], xbc,
                                  state=conv_state)
-    xs, b_in, c_out = torch.split(xbc, [d_inner, N, N], dim=-1)
+    xs, b_in, c_out = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    b_in, c_out = unflatten(b_in, 2, (G, N)), unflatten(c_out, 2, (G, N))
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())  # (B,S,H)
+    dt_bias = p["dt_bias"].float()
+    offset = dt_offset(cfg, H, x.device)
+    if offset is not None:
+        dt_bias = dt_bias + offset
+    dt = F.softplus(dt.float() + dt_bias)               # (B,S,H)
     a = -torch.exp(p["a_log"].float())                  # (H,) negative
     log_a = dt * a                                      # (B,S,H)
 
@@ -158,19 +213,20 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
         if state is None:
             state = torch.zeros((B, H, N, P), dtype=torch.float32,
                                 device=x.device)
-        bh = b_in[:, :, None, :].expand(B, S, H, N)
-        ch = c_out[:, :, None, :].expand(B, S, H, N)
-        y, new_state = ssd_decode_step(state, xh, log_a, bh, ch)
+        y, new_state = ssd_decode_step(state, xh, log_a, heads_of(b_in, H),
+                                       heads_of(c_out, H))
     else:
-        # B/C are shared across heads (ngroups=1): ssd broadcasts them as
-        # stride-0 views
-        y, new_state = ssd(xh, log_a, b_in[:, :, None, :],
-                           c_out[:, :, None, :], chunk=cfg.ssm_chunk,
+        # B/C of each group are shared by its heads: ssd broadcasts one
+        # group as stride-0 views, and the kernel reads several by group
+        y, new_state = ssd(xh, log_a, b_in, c_out, chunk=cfg.ssm_chunk,
                            initial_state=state)
 
     y = y + unflatten(xs, 2, (H, P)) * p["d_skip"].to(xs.dtype)[:, None]
     y = flatten(y, 2, 3)
-    y = rmsnorm(p["norm"], y) * F.silu(z)
+    if cfg.ssm_gate_before_norm:
+        y = _gated_norm(p["norm"], y, z, G, cfg.norm_eps)
+    else:
+        y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
     out = constrain(matmul(y, p["w_out"]), "act_batch", "act_seq", None)
     return out, (new_state, new_conv)
 

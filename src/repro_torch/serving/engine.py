@@ -19,7 +19,8 @@ earlier admission's rows gives the same result as the reference's zeros).
 
 Spans (:mod:`..tracing`): ``engine.step`` per loop iteration
 (``admitted``, ``rows``), ``engine.admit`` per exact admission (``rid``,
-``prompt_tokens``) or per bucket (``rids``, ``prompt_tokens``), and
+``prompt_tokens``) or per bucket (``rids``, ``prompt_tokens``, and
+``padded_tokens``: the width times the bucket the prefill ran), and
 ``engine.readback`` around each decode step's copy of its tokens to the
 host.
 """
@@ -237,9 +238,10 @@ class ServingEngine:
         pre = max(len(req.prompt) - 1 for req, _ in batch)
         with tracing.span("engine.admit", rids=[req.rid for req, _ in batch],
                           prompt_tokens=sum(len(req.prompt)
-                                            for req, _ in batch)):
+                                            for req, _ in batch)) as sp:
             if pre > 0:
                 bucket = bucket_for(pre, self.prompt_buckets)
+                sp.set(padded_tokens=self.width * bucket)
                 toks = np.zeros((self.width, bucket), np.int32)
                 for j, (req, _) in enumerate(batch):
                     toks[j, :len(req.prompt) - 1] = req.prompt[:-1]

@@ -29,6 +29,13 @@ port, the kernels included, can import it.
 
 The spans live in a buffer of :data:`CAPACITY` records, the oldest
 dropped first.  :func:`spans` reads them, :func:`clear` empties it.
+
+Counters are always on: :func:`count` adds to a named total (one dict
+update), :func:`counters` reads the totals.  They count the calls that run
+Python, so a CUDA graph's replays add nothing.  The port's counters:
+``shared_applications`` (the published Zamba2 blocks' applications,
+``models/lm.py``) and ``ssd_pad_positions`` (the identity steps that pad
+an SSD call's last chunk, ``kernels/ssd_scan.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ import time
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["CAPACITY", "PREFIX", "clear", "span", "spans", "start", "stop"]
+__all__ = ["CAPACITY", "PREFIX", "clear", "count", "counters", "span",
+           "spans", "start", "stop"]
 
 CAPACITY = 1 << 15
 PREFIX = "repro_torch."
@@ -50,6 +58,7 @@ _on = False
 _buffer: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count(1)
 _local = threading.local()
+_counts: collections.Counter = collections.Counter()
 
 
 class _Off:
@@ -157,3 +166,13 @@ def spans() -> list[dict]:
             if events is not None:
                 r["device_s"] = events[0].elapsed_time(events[1]) / 1e3
     return recs
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] += n
+
+
+def counters() -> dict[str, int]:
+    """The counters' totals since the process started."""
+    return dict(_counts)

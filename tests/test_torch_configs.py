@@ -33,15 +33,29 @@ from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
 
 
+# configurations the port runs that the reference has no model for: the
+# published Zamba2-7B (its shared blocks over concat(x, embedding), per
+# application LoRA, grouped Mamba-2), held against
+# perfbench/reference/zamba2.py by tests/test_torch_zamba2.py
+PORT_ONLY = {"zamba2-7b"}
+
+
 def test_config_names_equal_the_reference():
-    assert config_names() == jax_names()
+    assert sorted(set(config_names()) - PORT_ONLY) == jax_names()
+    assert PORT_ONLY <= set(config_names())
 
 
 @pytest.mark.parametrize("name", jax_names())
 def test_config_equals_the_reference_field_by_field(name):
+    """Every field the reference has, equal; the port's own fields (the
+    published Zamba2's mechanisms, the norm's epsilon) at their defaults,
+    which keep the reference's behaviour."""
     want = dataclasses.asdict(jax_config(name))
     got = dataclasses.asdict(get_config(name))
-    assert got == want
+    assert {k: got[k] for k in want} == want
+    defaults = {f.name: f.default for f in dataclasses.fields(
+        type(get_config(name))) if f.name not in want}
+    assert {k: got[k] for k in defaults} == defaults
     assert get_config(name).group_kinds == jax_config(name).group_kinds
     assert get_config(name).n_groups == jax_config(name).n_groups
 

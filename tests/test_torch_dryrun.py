@@ -235,10 +235,12 @@ def test_cell_skipped_and_failed_records(world):
     assert dryrun.cell_skipped("zamba2-2.7b", LONG_500K) is None
     assert dryrun.ARCHS == __import__(
         "repro.launch.dryrun", fromlist=["ARCHS"]).ARCHS
-    # 33 tokens are no multiple of the SSD's chunk of 16: the cell fails
-    rec = dryrun.run_cell("zamba2-2.7b", ShapeConfig("t", 33, 16, "train"),
+    # 3 groups of the SSD's B and C do not divide its 8 heads: the cell
+    # fails (the SSD takes a sequence of any length, so a ragged one no
+    # longer does)
+    rec = dryrun.run_cell("zamba2-2.7b", ShapeConfig("t", 32, 16, "train"),
                           multi_pod=False, verbose=False,
-                          cfg=_zamba_small(2))
+                          cfg=_zamba_small(2).replace(ssm_groups=3))
     assert rec["status"] == "FAIL" and "ValueError" in rec["error"]
     assert "trace" in rec
 

@@ -19,6 +19,7 @@ import torch.distributed as dist
 from repro.configs.base import ALL_SHAPES as REF_SHAPES
 from repro.launch.steps import rules_for as ref_rules_for
 from repro.models import build_model as ref_build_model
+from repro.models import config_names as ref_config_names
 from repro.models import get_config as ref_get_config
 from repro.runtime import sharding as R
 from repro_torch.configs.base import ALL_SHAPES
@@ -148,7 +149,7 @@ def _ref_paths(tree, is_leaf, path=""):
             for k, v in _ref_paths(sub, is_leaf, f"{path}/{i}").items()}
 
 
-@pytest.mark.parametrize("arch", config_names())
+@pytest.mark.parametrize("arch", ref_config_names())
 def test_param_and_cache_axes_match(arch):
     port = build_model(get_config(arch), device="meta")
     ref = ref_build_model(ref_get_config(arch))
