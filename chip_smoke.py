@@ -75,12 +75,18 @@ from its CUDA graph equals an eager call) and through the bucketed engine
 (width 8, 16 requests of 64-1024 tokens, 32 new each); zamba2-2.7b (54
 Mamba-2 layers, a shared attention block of 32 heads of head_dim 80 every
 6) through the exact engine (width 4, 8 requests of 128, 256 or 512
-tokens, 16 new); zamba2-7b, the published Zamba2 (81 Mamba-2 layers, two
+tokens, 16 new), whose decode step, captured as CUDA graphs, must hold
+10 graphs and launch the SSD decode kernel 54 times in the capture;
+zamba2-7b, the published Zamba2 (81 Mamba-2 layers, two
 shared blocks applied before 13 of them, heads of 224, B and C in 2
 groups), through the exact engine (width 4, 6 requests of 300, 1021, 2047
 or 3468 tokens, none a multiple of its chunk, 16 new), whose run must
 launch flash 13 times and ssd_scan 81 times an admission and
-decode_attention 13 times a tick; and the reduced gemma2 of
+decode_attention 13 times a tick, and whose decode step, captured as CUDA
+graphs, must hold 14 graphs around the 13 decode_attention cuts and launch
+the SSD decode kernel 81 times in the capture, and whose graphed tick is
+then timed at the chat cell's 34 slots with the kernel and with the plain
+update and its copy in its place; and the reduced gemma2 of
 ``examples/partition_and_serve_torch.py``, whose local layers decode with
 a window.  Each is driven with the launch counts set to 0 and must launch
 every kernel it runs.  Each engine's requests are then held by a
@@ -100,7 +106,13 @@ chat cell's shapes against their plain versions: flash at head 224 over
 its longest prompt (3468), decode at head 224 over its 34 slots of 4096,
 and the SSD reading B and C of 2 groups of 56 heads over the longest
 prompt (also bit for bit against its launch on the maps copied to each
-head), each with the zamba2-7b path's launches.
+head), each with the zamba2-7b path's launches; three rows hold the SSD
+decode kernel (the one-token step, the state updated in place) against
+its plain version, at zamba2-7b's heaviest tick (34 rows of 112 heads),
+at zamba2-2.7b's decode (4 rows of 80 heads, one map of b and c, also
+bit for bit against it as stride-0 views over the heads) and at
+xlstm-125m's decode (4 rows of 4 heads of 384), timed beside the plain
+version with the copy into the state it made.
 
 The phase then runs the other model families at full size: qwen2-moe-a2.7b
 (24 layers, 60 routed experts padded to 64, top-4, a shared expert; 29.7
@@ -866,6 +878,8 @@ ZAMBA_ENGINE = dict(width=4, max_len=1024, requests=8,
 ZAMBA2_7B_ENGINE = dict(width=4, max_len=4096, requests=6,
                         prompts=(300, 1021, 2047, 3468), new=16)
 ZAMBA2_7B_ROWS = dict(prompt=3468, width=34, max_len=4096, lengths=(300, 3988))
+# replays of the graphed zamba2-7b tick a timing takes (~35-50 ms each)
+TICK_RUNS = 10
 # teacher-forced check, decided before the first run on the card: the
 # kernels' logits against the plain versions' by relative norm error
 # (tests/test_kernels.py:18-19), and each engine token equal to the plain
@@ -910,6 +924,15 @@ class StepClock:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
+def plain_ssd_decode(state, x, la, b, c, *, out=None):
+    """The SSD decode's plain version (``kernels/ref.py``) under the
+    wrapper's signature: the new state copied into ``out`` when given, as
+    the decode step before the kernel copied it into the cache."""
+    from repro_torch.kernels import ref
+    y, st = ref.ssd_decode_ref(state, x, la, b, c)
+    return y, (st if out is None else out.copy_(st))
+
+
 def _plain_kernels():
     """The model's kernel entry points replaced by their plain versions
     (``kernels/ref.py``), as a context manager: the module attributes the
@@ -919,12 +942,13 @@ def _plain_kernels():
     from repro_torch.kernels import ref
     from repro_torch.models import encdec
     from repro_torch.models import layers as L
-    from repro_torch.models import ssm
+    from repro_torch.models import ssm, xlstm
 
     @contextlib.contextmanager
     def patched():
         saved = (L.flash_attention, L.decode_attention, ssm.ssd_scan,
-                 encdec.flash_attention, encdec.decode_attention)
+                 encdec.flash_attention, encdec.decode_attention,
+                 ssm.ssd_decode, xlstm.ssd_decode)
         L.flash_attention = encdec.flash_attention = lambda q, k, v, *, \
             causal=True, window=None, softcap=None, block_q=None, \
             block_k=None: ref.flash_attention_ref(
@@ -940,11 +964,13 @@ def _plain_kernels():
         L.decode_attention = encdec.decode_attention = plain_decode
         ssm.ssd_scan = lambda x, la, b, c, *, chunk: ref.ssd_ref(
             x, la, b, c, chunk=chunk)
+        ssm.ssd_decode = xlstm.ssd_decode = plain_ssd_decode
         try:
             yield
         finally:
             (L.flash_attention, L.decode_attention, ssm.ssd_scan,
-             encdec.flash_attention, encdec.decode_attention) = saved
+             encdec.flash_attention, encdec.decode_attention,
+             ssm.ssd_decode, xlstm.ssd_decode) = saved
 
     return patched()
 
@@ -1073,6 +1099,7 @@ def kernel_launches() -> dict:
             "decode_attention": da_mod.launches,
             "ssd_scan": ssd_mod.launches,
             "ssd_scan wide route": ssd_mod.wide_launches,
+            "ssd_decode": ssd_mod.decode_launches,
             "flash_attention backward (plain)": fa_mod.backward_launches,
             "ssd_scan backward (plain)": ssd_mod.backward_launches}
 
@@ -1216,9 +1243,101 @@ def lm_granite(dev, resources, net, out_dir, cfg=None) -> dict:
                 lengths=run.pop("lengths"))
 
 
+def decode_captures():
+    """A context manager in which each capture of a decode step as CUDA
+    graphs is recorded: it yields the list of (graphs in the chain, SSD
+    decode launches inside the capture)."""
+    import contextlib
+
+    from repro_torch import _device
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    @contextlib.contextmanager
+    def patched():
+        real, captures = _device.capture_chain, []
+
+        def counted(*args, **kwargs):
+            before = ssd_mod.decode_launches
+            chain = real(*args, **kwargs)
+            captures.append((len(chain.graphs),
+                             ssd_mod.decode_launches - before))
+            return chain
+        _device.capture_chain = counted
+        try:
+            yield captures
+        finally:
+            _device.capture_chain = real
+
+    return patched()
+
+
+def check_captures(label, captures, cfg) -> None:
+    """Raises unless there was a capture and each held a graph around each
+    shared application's decode_attention cut (one more than the
+    applications) and an SSD decode launch per Mamba-2 layer."""
+    want = (cfg.n_shared_applications + 1, cfg.n_layers)
+    print(f"{label} decode captures (graphs, ssd_decode launches in the "
+          f"capture): {captures} (expected {want} each)")
+    if not captures or any(c != want for c in captures):
+        raise RuntimeError(f"{label}: decode captures {captures}; expected "
+                           f"{want[0]} graphs and {want[1]} ssd_decode "
+                           f"launches each")
+
+
+def graphed_tick(label, model, params, width, max_len, lengths) -> dict:
+    """The decode step as the engine runs it, over ``width`` slots of
+    ``max_len`` whose attention reads ``lengths`` (each slot's cache length
+    plus the new token, as :func:`decode_row` takes them), replayed as CUDA
+    graphs: its
+    device time (``time_ms``, median of ``TICK_RUNS`` replays) with the SSD
+    decode kernel, and with :func:`plain_ssd_decode` in its place (the
+    plain update and its copy into the cache: the step before the kernel),
+    each from a capture of its own over one cache."""
+    import contextlib
+
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import ssm
+
+    @contextlib.contextmanager
+    def plain():
+        saved, ssm.ssd_decode = ssm.ssd_decode, plain_ssd_decode
+        try:
+            yield
+        finally:
+            ssm.ssd_decode = saved
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = model.init_cache(batch=width, max_len=max_len)
+    token = torch.zeros((width, 1), dtype=torch.int32, device=model.device)
+    cache_len = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                             device=model.device)
+    out = {}
+    for name, patch in (("kernel_ms", contextlib.nullcontext()),
+                        ("plain_ms", plain())):
+        step = make_decode_step(model)
+        with patch, torch.no_grad():
+            # the first call runs the step eagerly and captures it
+            out[name] = time_ms(lambda: step(params, cache, token, cache_len),
+                                runs=TICK_RUNS)
+        del step
+        gc.collect()
+    del cache
+    torch.cuda.empty_cache()
+    print(f"{label} graphed decode tick over {width} slots of {max_len} at "
+          f"lengths {min(lengths)}-{max(lengths)}: {out['kernel_ms']:.3f} ms "
+          f"with the SSD decode kernel, {out['plain_ms']:.3f} ms with the "
+          f"plain update and its copy (device time, median of {TICK_RUNS} "
+          f"replays)")
+    return out | dict(width=width, max_len=max_len)
+
+
 def lm_zamba(dev, cfg=None) -> dict:
-    """zamba2-2.7b: the engine alone (exact admission); returns the path's
-    launches, numbers and the lengths of its heaviest decode step."""
+    """zamba2-2.7b: the engine alone (exact admission), each capture of its
+    decode step checked (:func:`check_captures`: 10 graphs, 54 SSD decode
+    launches); returns the path's launches, numbers and the lengths of its
+    heaviest decode step."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as da_mod
@@ -1234,11 +1353,15 @@ def lm_zamba(dev, cfg=None) -> dict:
         0, model.cfg.vocab, int(rng.choice(e["prompts"]))),
         max_new_tokens=e["new"]) for i in range(e["requests"])]
     fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
-    run = serve(label, model, params, requests, e["width"], e["max_len"])
+    ssd_mod.decode_launches = 0
+    with decode_captures() as captures:
+        run = serve(label, model, params, requests, e["width"], e["max_len"])
     launches = {"flash_attention": fa_mod.launches,
                 "decode_attention": da_mod.launches,
-                "ssd_scan": ssd_mod.launches}
+                "ssd_scan": ssd_mod.launches,
+                "ssd_decode": ssd_mod.decode_launches}
     require_launches(launches)
+    check_captures(label, captures, model.cfg)
     done = run.pop("done")
     if run["path"] != "exact":
         raise RuntimeError(f"{label}: admission was not the exact path")
@@ -1255,9 +1378,13 @@ def lm_zamba2_7b(dev) -> dict:
     blocks applied before 13 of them over concat(x, embedding), heads of
     224): the exact engine over ragged prompts, each admission counted (a
     flash launch per shared application and an SSD launch per Mamba-2
-    layer) and each decode tick (a decode launch per application), then
-    the teacher-forced check at ``ZAMBA2_7B_TOL`` with ``pad_to`` 1: every
-    length prefills as it is.  Returns the path's launches, numbers and per-step counts."""
+    layer) and each decode tick (a decode launch per application), each
+    capture of the decode step as CUDA graphs checked
+    (:func:`check_captures`), then the teacher-forced check at
+    ``ZAMBA2_7B_TOL`` with ``pad_to`` 1: every length prefills as it is;
+    then the graphed tick timed at the chat cell's 34 slots
+    (:func:`graphed_tick`).  Returns the path's launches, numbers,
+    per-step counts and the tick's times."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as da_mod
@@ -1274,11 +1401,15 @@ def lm_zamba2_7b(dev) -> dict:
         0, cfg.vocab, e["prompts"][i % len(e["prompts"])]),
         max_new_tokens=e["new"]) for i in range(e["requests"])]
     fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
-    run = serve(label, model, params, requests, e["width"], e["max_len"])
+    ssd_mod.decode_launches = 0
+    with decode_captures() as captures:
+        run = serve(label, model, params, requests, e["width"], e["max_len"])
     launches = {"flash_attention": fa_mod.launches,
                 "decode_attention": da_mod.launches,
-                "ssd_scan": ssd_mod.launches}
+                "ssd_scan": ssd_mod.launches,
+                "ssd_decode": ssd_mod.decode_launches}
     require_launches(launches)
+    check_captures(label, captures, cfg)
     in_run = run["launches_in_run"]
     per_admission = {"flash_attention": in_run["flash_attention"]
                      / run["prefills"],
@@ -1297,12 +1428,15 @@ def lm_zamba2_7b(dev) -> dict:
     if run["path"] != "exact":
         raise RuntimeError(f"{label}: admission was not the exact path")
     check = teacher_forced(label, model, params, done, tol=ZAMBA2_7B_TOL)
+    r = ZAMBA2_7B_ROWS
+    tick = graphed_tick(label, model, params, r["width"], r["max_len"],
+                        row_lengths())
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches, engine=run, check=check,
                 per_admission=per_admission, per_tick=per_tick,
-                lengths=run.pop("lengths"))
+                captures=captures, tick=tick, lengths=run.pop("lengths"))
 
 
 def flash_hd224_row(dev, launches) -> dict:
@@ -1439,17 +1573,108 @@ def ssd_grouped_row(dev, launches) -> dict:
         lib_ms=None, launches=launches)
 
 
-def zamba2_7b_rows(dev, zamba7) -> list:
-    """The rows of the kernels' head-224 and grouped instances at the
-    zamba2-7b chat cell's shapes, each with the launches of
-    :func:`lm_zamba2_7b`'s run."""
-    from repro_torch.models import get_config
+# the SSD decode's new state takes the plain version's roundings (two
+# products and their sum, no FMA), so only expf's last bits could part them
+SSD_DECODE_TOL = 1e-6
 
+
+def ssd_decode_row(dev, name, B, H, G, N, P, launches,
+                   launches_of=None) -> dict:
+    """The SSD decode kernel at B rows of H heads, b and c of G groups of
+    N, P columns: an fp32 state, x in bf16, b and c cut from one
+    projection as the blocks hand them over, the state updated in place as
+    the decode step runs it.  Held against the plain version (y at
+    ``TOL``, the state at ``SSD_DECODE_TOL``; with one group, also bit for
+    bit against the call on b and c as stride-0 views over the heads),
+    timed beside it with the
+    copy into the state it made (the step before the kernel); the bound
+    is the state read once and written once, beside x, b, c and y."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    state = torch.randn((B, H, N, P), generator=gen, device=dev)
+    x = torch.randn((B, 1, H, P), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    la = -F.softplus(torch.randn((B, 1, H), generator=gen, device=dev))
+    bc = torch.randn((B, 1, 2 * G * N), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    b, c = (bc[..., i * G * N:(i + 1) * G * N].unflatten(2, (G, N))
+            for i in range(2))
+    y_ref, st_ref = ref.ssd_decode_ref(state, x, la, b, c)
+    before = state.clone() if G == 1 else None
+    y, st = ssd_mod.ssd_decode(state, x, la, b, c, out=state)
+    err = check_close(f"{name} y vs plain", y, y_ref)
+    st_err = check_close(f"{name} state vs plain", st, st_ref,
+                         atol=SSD_DECODE_TOL, rtol=SSD_DECODE_TOL)
+    del y_ref, st_ref
+    if before is not None:
+        # one map for every head, as a stride-0 view over the heads (G = H
+        # with a head stride of 0): the same sums, bit for bit
+        wide = [t.expand(B, 1, H, N) for t in (b, c)]
+        y_w, st_w = ssd_mod.ssd_decode(before, x, la, *wide, out=before)
+        if not (torch.equal(y_w, y) and torch.equal(st_w, st)):
+            raise RuntimeError(f"{name}: the stride-0 view of the one map "
+                               f"differs from the grouped call")
+        print(f"{name}: b and c as a stride-0 view over the {H} heads equal "
+              f"the grouped call bit for bit")
+        del before, y_w, st_w
+
+    def call():
+        return ssd_mod.ssd_decode(state, x, la, b, c, out=state)
+
+    def plain():
+        state.copy_(ref.ssd_decode_ref(state, x, la, b, c)[1])
+    ms, call_ms = time_ms(call), time_ms(call, hold=False)
+    host = host_ms(call)
+    plain_ms = time_ms(plain, runs=10)
+    nbytes = 2.0 * state.numel() * state.element_size() + \
+        moved_bytes(x, la, y) + 2.0 * b.numel() * b.element_size()
+    tile = ssd_mod.decode_tile(B, H, P)
+    ptxas = [v for k, v in _build.ptxas_report("ssd_scan").items()
+             if "ssd_decode_kernel" in k and "bfloat16" in k]
+    return dict(
+        name=name, tpu="ssd_scan", replaces="none: the reference's "
+        "ssd_decode_step (src/repro/models/ssm.py:118) is plain jnp",
+        design="SIMT fp32, in place: a CTA per (row, head, P tile), 16-byte "
+               "lanes along P, row groups over N, y summed in shared memory",
+        build=dict(registers=max(e["registers"] for e in ptxas),
+                   spill_stores=max(e["spill_stores"] for e in ptxas),
+                   tile=tile, ctas=B * H * -(-P // tile)),
+        shapes=f"state {tuple(state.shape)} fp32 in place, x "
+               f"{tuple(x.shape)} bf16, b, c {tuple(b.shape)} bf16 views of "
+               f"one projection ({H // G} heads a group), log_a fp32; "
+               f"state max abs err {st_err:.4g} (tol {SSD_DECODE_TOL}); "
+               f"plain: the plain version and its copy into the state",
+        err=err, tol=f"tol {TOL} abs + {TOL} rel", ms=ms, call_ms=call_ms,
+        host_ms=host, plain_ms=plain_ms, flops=4.0 * B * H * N * P,
+        nbytes=nbytes, lib_ms=None, launches=launches,
+        **({"launches_of": launches_of} if launches_of else {}))
+
+
+def row_lengths() -> list[int]:
+    """The cache lengths of the zamba2-7b chat cell's 34 slots that its
+    decode row and its graphed tick read, drawn in ``ZAMBA2_7B_ROWS``'s
+    range from seed ``SEED + 3``."""
     import numpy as np
 
-    c, r = get_config("zamba2-7b"), ZAMBA2_7B_ROWS
+    r = ZAMBA2_7B_ROWS
     gen = np.random.default_rng(SEED + 3)
-    lengths = [int(n) for n in gen.integers(*r["lengths"], r["width"])]
+    return [int(n) for n in gen.integers(*r["lengths"], r["width"])]
+
+
+def zamba2_7b_rows(dev, zamba7) -> list:
+    """The rows of the kernels' head-224 and grouped instances and of the
+    SSD decode at the zamba2-7b chat cell's shapes, each with the launches
+    of :func:`lm_zamba2_7b`'s run; the SSD decode's row carries the
+    graphed tick's times."""
+    from repro_torch.models import get_config
+
+    c, r = get_config("zamba2-7b"), ZAMBA2_7B_ROWS
+    Hn = c.ssm_expand * c.d_model // c.ssm_head_dim
+    lengths = row_lengths()
     launches = zamba7["launches"]
     return [
         flash_hd224_row(dev, launches["flash_attention"]),
@@ -1462,6 +1687,13 @@ def zamba2_7b_rows(dev, zamba7) -> list:
                                f"{ZAMBA2_7B_ENGINE['width']}, not these "
                                f"widths"),
         ssd_grouped_row(dev, launches["ssd_scan"]),
+        ssd_decode_row(dev, "ssd_decode_zamba2_7b", r["width"], Hn,
+                       c.ssm_groups, c.ssm_state, c.ssm_head_dim,
+                       launches["ssd_decode"],
+                       launches_of=f"the zamba2-7b engine at width "
+                                   f"{ZAMBA2_7B_ENGINE['width']}, not "
+                                   f"these widths")
+        | {"tick": zamba7["tick"]},
     ]
 
 
@@ -1949,12 +2181,13 @@ def lm_xlstm(dev, resources, net, cfg=None) -> dict:
     requests = lambda: _requests(c.vocab, XLSTM_ENGINE, SEED + 3)  # noqa
     e = XLSTM_ENGINE
     t0 = time.perf_counter()
-    ssd_mod.launches = ssd_mod.wide_launches = 0
+    ssd_mod.launches = ssd_mod.wide_launches = ssd_mod.decode_launches = 0
     run = serve(label, model, params, requests(), e["width"], e["max_len"])
     if run["path"] != "exact":
         raise RuntimeError(f"{label}: admission was not the exact path")
     launches = {"ssd_scan (engine)": ssd_mod.launches,
                 "ssd_scan wide route (engine)": ssd_mod.wide_launches,
+                "ssd_decode (engine)": ssd_mod.decode_launches,
                 "ssd_scan wide route (engine's run, warm-up excluded)":
                     run["launches_in_run"]["ssd_scan wide route"]}
     require_launches(launches)
@@ -2418,14 +2651,17 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
     rows of the new routes: ssd_scan at the mLSTM's 384-wide heads, flash
     without a mask and decode over whisper's cross cache; then decode rows
     at the other families' widths and the lengths of their heaviest step
-    (whisper's self-attention, the qwen2-moe engine, internvl2), and
-    zamba2-7b's three rows (:func:`zamba2_7b_rows`).  The rows
+    (whisper's self-attention, the qwen2-moe engine, internvl2), the SSD
+    decode at the zamba2-2.7b and xlstm-125m engines' widths, and
+    zamba2-7b's four rows
+    (:func:`zamba2_7b_rows`).  The rows
     run under the adopted sizes, as the paths did.  Returns those rows."""
     import time
 
     import torch
     from repro_torch.kernels import substrate
     from repro_torch.models import get_config
+    from repro_torch.models.xlstm import mlstm_dims
 
     t0 = time.perf_counter()
     gc.collect()
@@ -2467,6 +2703,7 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
         example["cfg"]
     g9, wc = get_config("gemma2-9b"), get_config("whisper-medium")
     qc, ic = get_config("qwen2-moe-a2.7b"), get_config("internvl2-76b")
+    xc = get_config("xlstm-125m")
     qwen, whisper, internvl = (others[n] for n in (
         "qwen2-moe-a2.7b", "whisper-medium", "internvl2-76b"))
     xl = others["xlstm-125m"]["launches"]
@@ -2498,6 +2735,13 @@ def lm_phase(dev, resources, net, out_dir, prefill_db) -> list:
                    launches_of="the reduced gemma2 example (head_dim 32, "
                                "window 16), not these widths"),
         ssd_mlstm_row(dev, sum(wide.values()), wide),
+        ssd_decode_row(dev, "ssd_decode_zamba2_2p7b", ZAMBA_ENGINE["width"],
+                       zc.ssm_expand * zc.d_model // zc.ssm_head_dim,
+                       zc.ssm_groups, zc.ssm_state, zc.ssm_head_dim,
+                       zamba["launches"]["ssd_decode"]),
+        ssd_decode_row(dev, "ssd_decode_mlstm_hd384", XLSTM_ENGINE["width"],
+                       xc.n_heads, xc.n_heads, mlstm_dims(xc)[2],
+                       mlstm_dims(xc)[2], xl["ssd_decode (engine)"]),
         flash_noncausal_row(dev, others["whisper-medium"]["launches"]
                             ["flash non-causal"]),
         decode_row("decode_attention_cross_whisper",
@@ -2578,7 +2822,7 @@ def zero_launches() -> None:
     from repro_torch.kernels import ssd_scan as ssd_mod
     fa_mod.launches = fa_mod.backward_launches = 0
     ssd_mod.launches = ssd_mod.wide_launches = ssd_mod.backward_launches = 0
-    da_mod.launches = 0
+    ssd_mod.decode_launches = da_mod.launches = 0
 
 
 def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
@@ -4232,7 +4476,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "design": r["design"],
             "source": "src/repro_torch/kernels/csrc/"
                       f"{r['tpu'].split('.')[0]}.cu",
-            "replaces": f"src/repro/kernels/{r['tpu']}",
+            "replaces": r.get("replaces", f"src/repro/kernels/{r['tpu']}"),
             "launches": n_launch, "max_abs_err": r["err"], "ms": ms,
             "call_ms": r["call_ms"],
             "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
@@ -4242,6 +4486,7 @@ def main() -> int:
             **({"launches_mesh": r["mesh"]} if "mesh" in r else {}),
             **({"launches_split": r["launches_split"]}
                if "launches_split" in r else {}),
+            **({"tick": r["tick"]} if "tick" in r else {}),
             **r.get("build", {})})
     torch.cuda.synchronize()
 

@@ -58,6 +58,8 @@ SIGNATURES = {
 EXTRA_FUNCTIONS = {
     "decode_attention": {"da_occupancy": [_I, _I, _I, _I, _I,
                                           ctypes.c_longlong, _P]},
+    "ssd_scan": {"ssd_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _P, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -203,12 +205,13 @@ def check(name: str, code: int) -> None:
 _strides: dict[tuple, ctypes.Array] = {}
 
 
-def strides(*tensors: torch.Tensor) -> ctypes.Array:
-    """The first three element strides of each tensor, flattened: (batch,
-    sequence, head) of a (B, S, H, ...) tensor, (batch, head, 1) of a
-    (B, H, hd) one.  The C entry points only read the array, so one is
-    kept per distinct set of strides."""
-    vals = tuple(t.stride(i) for t in tensors for i in range(3))
+def strides(*tensors: torch.Tensor, dims: int = 3) -> ctypes.Array:
+    """The first ``dims`` element strides of each tensor, flattened:
+    (batch, sequence, head) of a (B, S, H, ...) tensor, (batch, head, 1) of
+    a (B, H, hd) one; with ``dims=2`` (batch, head) of a (B, H, ...) one.
+    The C entry points only read the array, so one is kept per distinct
+    set of strides."""
+    vals = tuple(t.stride(i) for t in tensors for i in range(dims))
     arr = _strides.get(vals)
     if arr is None:
         arr = _strides[vals] = (ctypes.c_longlong * len(vals))(*vals)

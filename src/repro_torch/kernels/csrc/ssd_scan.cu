@@ -15,6 +15,9 @@
 // log_a, y and the fp32 final state (the node's b = c are views of x), so
 // an ideal kernel is bound by bytes.
 //
+// A second entry point, ssd_decode, runs the one-token step a decode takes
+// (its own section at the end, before the entry points).
+//
 // Three routes behind the one entry point ssd_forward, chosen by x's dtype
 // and the widths:
 //
@@ -1573,6 +1576,107 @@ int launch_wide_all(const void* x, const void* la, const void* bm,
              : launch_wide<bf16>(a, x, bm, cm, B, st, stream);
 }
 
+// ---------------------------------------------------------------------------
+// One-token decode: the recurrence's single step, in place
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX reference's ssd_decode_step
+// (src/repro/models/ssm.py:118) is plain jnp, left to XLA.  Per (row, head):
+//   st = state * exp(log_a) + b x^T,   y = c . st,
+// b and c of the head's group, the state (N, P) fp32.  What bounds it is
+// bytes: the state read once and written once, 2 B H N P 4 bytes a call
+// (124.8 MB at a 34-row zamba2-7b tick, 37.2 us at 3.35 TB/s), against
+// 4 N P FLOPs a head.  One CTA per (row, head, tile of P columns): lanes
+// run along the tile, 4 columns a lane by 16-byte loads and stores, and
+// the row groups of lanes split N; a thread issues the loads of a batch of
+// its rows (state, b, c) before its arithmetic, and writes st where it read
+// the state, so the output may alias the input.  The state streams past
+// the caches (ld/st .cs): nothing reads it again within the call.  Each
+// thread's partial y over its rows goes to shared memory, and a thread per
+// column sums the groups in order.  st takes the plain version's roundings
+// (a product, a product, their sum: no contraction into an FMA), so it
+// equals it where expf does; y sums N in another order.  The tile (all of
+// P up to 128, fewer columns where the grid would be short) is the
+// caller's, from the shape (kernels/ssd_scan.py decode_tile).
+
+constexpr int kDecodeThreads = 256;
+constexpr int kDecodeBatch = 4;  // state rows a thread loads before its arithmetic
+constexpr int kDecodeMaxTile = 128;
+
+// (batch, head) element strides of the decode's operands
+struct DecodeStrides {
+  long long b, h;
+};
+
+template <class T>
+__global__ void __launch_bounds__(kDecodeThreads)
+    ssd_decode_kernel(const float* state, const T* __restrict__ x,
+                      const float* __restrict__ la, const T* __restrict__ bm,
+                      const T* __restrict__ cm, float* out,
+                      T* __restrict__ y, int N, int P, int hpg, int tile,
+                      DecodeStrides ss, DecodeStrides xs, DecodeStrides as,
+                      DecodeStrides bs, DecodeStrides cs, DecodeStrides os,
+                      DecodeStrides ys) {
+  __shared__ float4 part[kDecodeThreads];  // each thread's 4 columns of y
+  const int quads = tile / 4;              // lanes across the tile
+  const int groups = kDecodeThreads / quads;  // row groups: they split N
+  const int q = threadIdx.x % quads, g = threadIdx.x / quads;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int p = blockIdx.x * tile + 4 * q;
+  const float a = expf(la[b * as.b + h * as.h]);
+  const T* bb = bm + b * bs.b + (h / hpg) * bs.h;
+  const T* cb = cm + b * cs.b + (h / hpg) * cs.h;
+  const float* sb = state + b * ss.b + h * ss.h + p;
+  float* ob = out + b * os.b + h * os.h + p;
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g < groups && p < P) {
+    const T* xb = x + b * xs.b + h * xs.h + p;
+    const float x0 = to_float(xb[0]), x1 = to_float(xb[1]),
+                x2 = to_float(xb[2]), x3 = to_float(xb[3]);
+    for (int n0 = g; n0 < N; n0 += groups * kDecodeBatch) {
+      float4 sv[kDecodeBatch];
+      float bv[kDecodeBatch], cv[kDecodeBatch];
+#pragma unroll
+      for (int k = 0; k < kDecodeBatch; ++k) {
+        const int n = n0 + k * groups;
+        if (n < N) {
+          sv[k] = __ldcs(reinterpret_cast<const float4*>(sb + (size_t)n * P));
+          bv[k] = to_float(bb[n]);
+          cv[k] = to_float(cb[n]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kDecodeBatch; ++k) {
+        const int n = n0 + k * groups;
+        if (n < N) {
+          float4 o;
+          o.x = __fadd_rn(__fmul_rn(sv[k].x, a), __fmul_rn(bv[k], x0));
+          o.y = __fadd_rn(__fmul_rn(sv[k].y, a), __fmul_rn(bv[k], x1));
+          o.z = __fadd_rn(__fmul_rn(sv[k].z, a), __fmul_rn(bv[k], x2));
+          o.w = __fadd_rn(__fmul_rn(sv[k].w, a), __fmul_rn(bv[k], x3));
+          __stcs(reinterpret_cast<float4*>(ob + (size_t)n * P), o);
+          acc.x = fmaf(cv[k], o.x, acc.x);
+          acc.y = fmaf(cv[k], o.y, acc.y);
+          acc.z = fmaf(cv[k], o.z, acc.z);
+          acc.w = fmaf(cv[k], o.w, acc.w);
+        }
+      }
+    }
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  // thread t < tile sums column t of the tile over the row groups: column t
+  // of group gg is float gg * tile + t of part
+  const int col = blockIdx.x * tile + threadIdx.x;
+  if (threadIdx.x < tile && col < P) {
+    const float* pf = reinterpret_cast<const float*>(part);
+    float sum = 0.f;
+    for (int gg = 0; gg < groups; ++gg) sum += pf[gg * tile + threadIdx.x];
+    y[b * ys.b + h * ys.h + col] = from_float<T>(sum);
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -1626,6 +1730,48 @@ extern "C" int ssd_forward(const void* x, const void* log_a, const void* b,
   return launch_chunked_all(x, log_a, b, c, y, fin,
                             static_cast<float*>(workspace), la_dtype, B, S, H,
                             P, N, hpg, strides, L, s);
+}
+
+// One token of the recurrence: state and out (B, H, N, P) fp32, each (N, P)
+// contiguous, 16-byte aligned, out == state allowed (updated in place); x
+// (B, H, P) and y (B, H, P) of the dtype code `dtype`; log_a (B, H) fp32;
+// b, c (B, H / hpg, N) of x's dtype, head h reading group h / hpg; the last
+// axis of each contiguous.  strides: 14 element strides, (batch, head) of
+// state, x, log_a, b, c, out, y in that order.  P is a multiple of 4, tile
+// (the P columns of a CTA) a multiple of 4 up to 128.  Returns a
+// cudaError_t code (0 on success).
+extern "C" int ssd_decode(const void* state, const void* x, const void* log_a,
+                          const void* b, const void* c, void* out, void* y,
+                          int dtype, int B, int H, int N, int P, int hpg,
+                          const long long* strides, int tile, void* stream) {
+  using namespace repro_torch;
+  const long long* st = strides;
+  if ((dtype != kFloat32 && dtype != kBFloat16) || B < 1 || H < 1 ||
+      N < 1 || P < 1 || P % 4 || B > 65535 || H > 65535 || hpg < 1 ||
+      H % hpg || tile < 4 || tile % 4 || tile > kDecodeMaxTile ||
+      reinterpret_cast<uintptr_t>(state) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || st[0] % 4 || st[1] % 4 ||
+      st[10] % 4 || st[11] % 4)
+    return (int)cudaErrorInvalidValue;
+  const DecodeStrides ss{st[0], st[1]}, xs{st[2], st[3]}, as{st[4], st[5]},
+      bs{st[6], st[7]}, cs{st[8], st[9]}, os{st[10], st[11]},
+      ys{st[12], st[13]};
+  const dim3 grid((P + tile - 1) / tile, H, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* la = static_cast<const float*>(log_a);
+  float* o = static_cast<float*>(out);
+  const float* sv = static_cast<const float*>(state);
+  if (dtype == kFloat32)
+    ssd_decode_kernel<float><<<grid, kDecodeThreads, 0, s>>>(
+        sv, static_cast<const float*>(x), la, static_cast<const float*>(b),
+        static_cast<const float*>(c), o, static_cast<float*>(y), N, P, hpg,
+        tile, ss, xs, as, bs, cs, os, ys);
+  else
+    ssd_decode_kernel<bf16><<<grid, kDecodeThreads, 0, s>>>(
+        sv, static_cast<const bf16*>(x), la, static_cast<const bf16*>(b),
+        static_cast<const bf16*>(c), o, static_cast<bf16*>(y), N, P, hpg,
+        tile, ss, xs, as, bs, cs, os, ys);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ssd_error_string(int code) {

@@ -119,6 +119,37 @@ def merge_weighted(num, den, dtype):
     return (num / torch.where(den == 0, torch.ones_like(den), den)).to(dtype)
 
 
+def heads_of(t, H: int):
+    """(B, S, G, N) maps of G groups as (B, S, H, N), one per head (a view
+    where G is 1 or H, else a copy)."""
+    G = t.shape[2]
+    if G == H:
+        return t
+    if G == 1:
+        return t.expand(*t.shape[:2], H, t.shape[3])
+    return t.repeat_interleave(H // G, dim=2)
+
+
+def ssd_decode_ref(state, x, log_a, b, c):
+    """One token of the SSD recurrence, the reference's ``ssd_decode_step``.
+
+    state: (B, H, N, P) fp32; x: (B, 1, H, P); log_a: (B, 1, H); b, c:
+    (B, 1, H, N), or (B, 1, G, N) for G groups of H / G heads each.
+    Returns (y: (B, 1, H, P) in x's dtype, the new state (B, H, N, P)
+    fp32): ``st = state * exp(log_a) + b xᵀ`` and ``y = c · st``, the
+    latter as the batched product over the (row, head) pairs.  The state
+    is left as it is."""
+    H = x.shape[2]
+    b, c = heads_of(b, H), heads_of(c, H)
+    a = torch.exp(log_a[:, 0].float())                  # (B, H)
+    st = state * a[:, :, None, None] + torch.einsum(
+        "bhn,bhp->bhnp", b[:, 0].float(), x[:, 0].float())
+    B, _, N, P = st.shape
+    y = torch.bmm(c[:, 0].float().flatten(0, 1)[:, None],
+                  st.flatten(0, 1))[:, 0]
+    return y.unflatten(0, (B, H))[:, None].to(x.dtype), st
+
+
 def ssd_ref(x, log_a, b, c, *, chunk=128):
     """Mamba-2 SSD as the chunked scan the kernel runs.
 

@@ -10,7 +10,8 @@ query-head split takes the kv heads with it, so that GQA's
 ``h // (H // Hk)`` stays local; where the kv heads do not divide as the
 query heads do, k and v are repeated to H heads first, as the reference's
 ``sdpa`` repeats them.  SSD's b and c, head-shared stride-0 views
-(``models.ssm.ssd``), split by heads as views.
+(``models.ssm.ssd``), split by heads as views; the one-token decode takes
+them repeated to the heads first.
 
 The one operand split otherwise is a decode cache split on its sequence
 (the ``act_kv_seq`` rules, over one mesh dimension or several): each rank
@@ -110,6 +111,18 @@ def ssd_scan(fn, x, log_a, b, c, **kw):
     state_pl = _remap(pl, {0: 0, 2: 1})
     return _local_map(lambda *a: fn(*a, **kw), mesh, (pl, state_pl),
                       (pl, pl, pl, pl), x, log_a, b, c)
+
+
+def ssd_decode(fn, state, x, log_a, b, c):
+    """``fn`` on each rank's shard of state (B, H, N, P), x (B, 1, H, P),
+    log_a (B, 1, H) and b, c (B, 1, H, N): batch and heads split alike,
+    the update local to a head; the new state comes back split as the
+    state."""
+    mesh = x.device_mesh
+    pl = _keep(x.placements, (0, 2))
+    state_pl = _remap(pl, {0: 0, 2: 1})
+    return _local_map(fn, mesh, (pl, state_pl), (state_pl, pl, pl, pl, pl),
+                      state, x, log_a, b, c)
 
 
 def decode_attention(fn, q, k, v, lengths, **kw):

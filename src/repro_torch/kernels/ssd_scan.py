@@ -42,6 +42,16 @@ counts those recomputations.  Each call is a ``kernel.ssd_scan`` span of
 :mod:`..tracing` (``groups``, and ``pad``: the padded positions of the last
 chunk), each backward a ``kernel.ssd_scan.backward`` span with CUDA
 events.
+
+:func:`ssd_decode` is the one-token step a decode takes, the second entry
+point of ``csrc/ssd_scan.cu`` (no TPU kernel: the reference's
+``ssd_decode_step`` is plain ``jnp``).  It reads each fp32 state once and
+writes it once, into ``out`` when given, which may be the state itself
+(the decode hands it the cache's slice, so the step updates the pool in
+place); b and c are read by group, as here.  Its plain version is
+:func:`.ref.ssd_decode_ref`.  ``decode_launches`` and the
+``ssd_decode_launches`` counter of :mod:`..tracing` count its launches
+(eager calls and CUDA-graph captures).
 """
 
 from __future__ import annotations
@@ -52,12 +62,13 @@ import torch
 
 from .. import tracing
 from . import _build, sharded
-from .ref import ssd_ref
+from .ref import heads_of, ssd_decode_ref, ssd_ref
 from .substrate import card_smem_limit
 
 launches = 0
 wide_launches = 0
 backward_launches = 0
+decode_launches = 0
 
 MAX_CHUNK = 256         # bf16 route: csrc/ssd_scan.cu kMaxChunk
 # bf16 route up to 8 * kMaxPT and 16 * kMaxNK; beyond, the wide route
@@ -77,6 +88,11 @@ WIDE_BOX = 64
 STATE_TP, SCAN_TP = 2 * WIDE_BOX, 3 * WIDE_BOX
 STATE_B_STAGES, STATE_X_STAGES, SCAN_STAGES = 3, 2, 2
 WIDE_SMALL, WIDE_ALIGN = 2048, 1024
+# the decode kernel (csrc/ssd_scan.cu ssd_decode): a CTA covers up to
+# DECODE_MAX_TILE columns of P, fewer (down to DECODE_MIN_TILE, a 128-byte
+# line a row) while the grid would hold fewer than DECODE_MIN_CTAS, two
+# for each of the H100's 132 SMs
+DECODE_MAX_TILE, DECODE_MIN_TILE, DECODE_MIN_CTAS = 128, 32, 264
 
 
 def wide(P: int, N: int) -> bool:
@@ -359,3 +375,110 @@ def _launch(x, log_a, b, c, chunk):
     launches += 1
     wide_launches += is_wide
     return y, fin
+
+
+def decode_tile(B: int, H: int, P: int) -> int:
+    """The columns of P one CTA of the decode kernel covers at (B, H, P):
+    all of P up to ``DECODE_MAX_TILE``, halved while the grid of B x H x
+    tiles holds fewer than ``DECODE_MIN_CTAS`` and half stays a multiple
+    of 4 of at least ``DECODE_MIN_TILE`` (at N = P = 64 a CTA takes a
+    head; at the mLSTM's P = 384 over 4 rows of 4 heads, 32 columns)."""
+    tile = min(P, DECODE_MAX_TILE)
+    while tile // 2 >= DECODE_MIN_TILE and tile % 8 == 0 and \
+            B * H * -(-P // tile) < DECODE_MIN_CTAS:
+        tile //= 2
+    return tile
+
+
+def ssd_decode(state, x, log_a, b, c, *, out=None):
+    """One token of the recurrence.  state: (B, H, N, P) fp32; x: (B, 1, H,
+    P); log_a: (B, 1, H); b, c: (B, 1, G, N), G dividing H: head h reads
+    group h // (H / G).
+
+    Returns (y: (B, 1, H, P) in x's dtype, the new state (B, H, N, P)
+    fp32), ``st = state * exp(log_a) + b xᵀ`` and ``y = c · st``.  The new
+    state is written into ``out`` when given (a contiguous fp32 tensor of
+    the state's shape, which may be ``state`` itself) and ``out`` is
+    returned; without it the state is left as it is."""
+    if state.ndim != 4 or x.ndim != 4 or x.shape[1] != 1 or \
+            tuple(state.shape) != (x.shape[0], x.shape[2],
+                                   b.shape[-1], x.shape[3]) or \
+            tuple(log_a.shape) != tuple(x.shape[:3]) or b.ndim != 4 or \
+            b.shape != c.shape or b.shape[:2] != x.shape[:2] or \
+            x.shape[2] % b.shape[2]:
+        raise ValueError(f"expected state (B,H,N,P), x (B,1,H,P), log_a "
+                         f"(B,1,H), b, c (B,1,G,N) with G dividing H, "
+                         f"got {tuple(state.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(log_a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    if out is not None and (out.shape != state.shape or
+                            out.dtype != torch.float32 or
+                            out.device != state.device):
+        raise ValueError(f"out must be a float32 tensor of shape "
+                         f"{tuple(state.shape)} on {state.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+    if sharded.is_dtensor(x):
+        H = x.shape[2]
+        y, st = sharded.ssd_decode(ssd_decode, state, x, log_a,
+                                   heads_of(b, H), heads_of(c, H))
+    elif x.device.type in ("cpu", "meta"):
+        y, st = ssd_decode_ref(state, x, log_a, b, c)
+    elif x.device.type != "cuda":
+        raise ValueError(f"ssd_decode: unsupported device {x.device}")
+    else:
+        return _decode_launch(state, x, log_a, b, c, out)
+    if out is None:
+        return y, st
+    return y, out.copy_(st)
+
+
+def _aligned(t) -> bool:
+    """Whether the decode kernel reads or writes ``t`` as it is: contiguous
+    and 16-byte aligned."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _decode_launch(state, x, log_a, b, c, out):
+    global decode_launches
+    if x.dtype not in _build.DTYPE_CODES or b.dtype != x.dtype or \
+            c.dtype != x.dtype or state.dtype != torch.float32:
+        raise ValueError(f"ssd_decode kernel takes a float32 state and "
+                         f"float32 or bfloat16 x, b, c of one dtype, got "
+                         f"{state.dtype}, {x.dtype}, {b.dtype}, {c.dtype}")
+    if not (state.device == x.device == log_a.device == b.device ==
+            c.device):
+        raise ValueError("state, x, log_a, b, c must be on one device")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (state, x, log_a, b, c)):
+        # the kernel has no backward and decode never trains
+        raise ValueError("ssd_decode takes no input that requires grad while "
+                         "grad mode is on: the kernel has no backward (run "
+                         "decode under torch.no_grad())")
+    B, H, N, P = state.shape
+    if P % 4:
+        raise ValueError(f"ssd_decode kernel reads the state 4 columns at a "
+                         f"time: P must be a multiple of 4, got {P}")
+    if out is None:
+        out = torch.empty(state.shape, dtype=torch.float32,
+                          device=state.device)
+    elif not _aligned(out):
+        raise ValueError(f"ssd_decode kernel writes out as it is: it must be "
+                         f"contiguous and 16-byte aligned, got strides "
+                         f"{out.stride()}")
+    if not _aligned(state):
+        state = state.contiguous()
+    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
+    log_a = log_a.float()
+    y = torch.empty((B, 1, H, P), dtype=x.dtype, device=x.device)
+    code = _build.library("ssd_scan").ssd_decode(
+        state.data_ptr(), x.data_ptr(), log_a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), out.data_ptr(), y.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], B, H, N, P, H // b.shape[2],
+        _build.strides(state, x[:, 0], log_a[:, 0], b[:, 0], c[:, 0], out,
+                       y[:, 0], dims=2),
+        decode_tile(B, H, P), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("ssd_scan", code)
+    decode_launches += 1
+    tracing.count("ssd_decode_launches")
+    return y, out

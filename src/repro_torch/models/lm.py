@@ -136,10 +136,13 @@ def apply_sublayer(cfg, kind, p, x, *, positions, cache, cache_len, mode,
         h = normf(p["norm"], x if inject is None else x + inject)
         core, key = (mamba2, "ssm") if kind == "mamba2" else (mlstm, "mat")
         st = {} if fresh or cache is None else cache
-        h, (ssm_st, conv_st) = core(p["core"], cfg, h, state=st.get(key),
-                                    conv_state=st.get("conv"),
-                                    decode=(mode == "decode"))
+        # a decode writes the recurrent state into the cache in place
+        decode = mode == "decode"
+        h, (ssm_st, conv_st) = core(
+            p["core"], cfg, h, state=st.get(key), conv_state=st.get("conv"),
+            decode=decode, state_out=st.get(key) if decode else None)
         if cache is not None and mode != "train":
+            # after a decode, a copy of the slice onto itself: PyTorch skips
             cache[key].copy_(ssm_st)
             cache["conv"].copy_(conv_st)
         return x + h, cache, 0.0

@@ -9,8 +9,10 @@ stride-0 views, which the kernel reads as they are; b, c of G groups
 group; and an initial state s0 adds ``exp(cumsum(log_a)) (c . s0)`` to y
 and ``exp(sum(log_a)) s0`` to the final state.  Any sequence length
 prefills: the kernel pads the last chunk with steps that leave the state
-as it is, and drops their outputs.  :func:`ssd_decode_step` is the
-reference's one-token recurrence, plain PyTorch as there.
+as it is, and drops their outputs.  A decode's one-token step is the
+port's ``kernels.ssd_decode`` (the reference's ``ssd_decode_step``, a
+kernel on the card that reads b, c by group and writes the new state into
+the cache's slice in place; its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.graph import TensorSpec
-from ..kernels.ssd_scan import ssd_scan
+from ..kernels.ref import heads_of
+from ..kernels.ssd_scan import ssd_decode, ssd_scan
 from ..kernels.substrate import DEFAULT_PARAMS, serving_param
 from ..runtime.sharding import constrain, flatten, unflatten
 from .layers import Pm, matmul, rmsnorm, rmsnorm_spec
@@ -72,31 +75,6 @@ def ssd(x, log_a, b, c, *, chunk: int | None = None, initial_state=None):
     y = (y.float() + torch.exp(seg)[..., None] * cs0).to(x.dtype)
     final = final + torch.exp(seg[:, -1])[..., None, None] * s0
     return y, final
-
-
-def heads_of(t, H: int):
-    """(B, S, G, N) maps of G groups as (B, S, H, N), one per head (a view
-    where G is 1 or H, else a copy)."""
-    G = t.shape[2]
-    if G == H:
-        return t
-    if G == 1:
-        return t.expand(*t.shape[:2], H, t.shape[3])
-    return t.repeat_interleave(H // G, dim=2)
-
-
-def ssd_decode_step(state, x, log_a, b, c):
-    """One-token recurrent update.  x: (B,1,H,P) etc.  Returns (y, state)."""
-    a = torch.exp(log_a[:, 0].float())                  # (B, H)
-    st = state * a[:, :, None, None] + torch.einsum(
-        "bhn,bhp->bhnp", b[:, 0].float(), x[:, 0].float())
-    # einsum("bhn,bhnp->bhp") as the batched product it runs, over rows
-    # that flatten/unflatten lay out (a DTensor's heads split kept apart)
-    B, H, N, P = st.shape
-    y = torch.bmm(flatten(c[:, 0].float(), 0, 1)[:, None],
-                  flatten(st, 0, 1))[:, 0]
-    y = unflatten(y, 0, (B, H))
-    return y[:, None].to(x.dtype), st
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +159,14 @@ def _causal_conv(w, bias, x, state=None):
     return F.silu(y + bias), new_state
 
 
-def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
+def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False,
+           state_out=None):
     """x: (B, S, D) -> (y, (ssm_state, conv_state)).
 
-    ``decode=True`` runs the O(1) recurrent update (S == 1 expected);
-    otherwise the chunked SSD scan (training / prefill).
+    ``decode=True`` runs the O(1) recurrent update (S == 1 expected),
+    writing the new state into ``state_out`` when given (which may be
+    ``state``, updated in place) and returning it; otherwise the chunked
+    SSD scan (training / prefill).
     """
     B, S, D = x.shape
     d_inner, H, conv_dim = mamba2_dims(cfg)
@@ -213,8 +194,9 @@ def mamba2(p, cfg, x, *, state=None, conv_state=None, decode=False):
         if state is None:
             state = torch.zeros((B, H, N, P), dtype=torch.float32,
                                 device=x.device)
-        y, new_state = ssd_decode_step(state, xh, log_a, heads_of(b_in, H),
-                                       heads_of(c_out, H))
+        # b and c read by group, as the scan reads them
+        y, new_state = ssd_decode(state, xh, log_a, b_in, c_out,
+                                  out=state_out)
     else:
         # B/C of each group are shared by its heads: ssd broadcasts one
         # group as stride-0 views, and the kernel reads several by group

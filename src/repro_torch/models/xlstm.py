@@ -5,10 +5,12 @@ The mLSTM recurrence ``C_t = f_t C_{t-1} + i_t v_t k_tᵀ`` is an SSD
 instance (per-head scalar decay ``log σ(f)``, input injection ``i``), so
 forward and prefill run the port's :func:`.ssm.ssd`, whose scan is the
 hand-written ``ssd_scan`` kernel on the card (4 heads of 384 at
-xlstm-125m's widths, the kernel's wide route), and decode the plain
-one-token :func:`.ssm.ssd_decode_step`, as the reference.  The sLSTM's gate
-recurrence (``R·h_{t-1}``) is a true serial dependency: a Python loop over
-time, where the reference runs ``lax.scan``; no Pallas kernel lies there.
+xlstm-125m's widths, the kernel's wide route), and decode the port's
+one-token ``kernels.ssd_decode`` (the reference's ``ssd_decode_step``: a
+kernel on the card that writes the state into the cache in place).  The
+sLSTM's gate recurrence (``R·h_{t-1}``) is a true serial dependency: a
+Python loop over time, where the reference runs ``lax.scan``; no Pallas
+kernel lies there.
 
 The sLSTM's stabiliser ``m`` starts at -1e9 when no state is given
 (``forward``) and from the state otherwise: a prefill passes its zeroed
@@ -24,9 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.graph import TensorSpec
+from ..kernels.ssd_scan import ssd_decode
 from ..runtime.sharding import constrain, flatten, per_shard, unflatten
 from .layers import _ACTIVATIONS, Pm, matmul, rmsnorm, rmsnorm_spec
-from .ssm import _causal_conv, ssd, ssd_decode_step
+from .ssm import _causal_conv, ssd
 
 
 # ---------------------------------------------------------------------------
@@ -57,8 +60,10 @@ def mlstm_spec(cfg) -> dict:
     }
 
 
-def mlstm(p, cfg, x, *, state=None, conv_state=None, decode=False):
-    """x: (B, S, D) -> (y, (matrix_state, conv_state))."""
+def mlstm(p, cfg, x, *, state=None, conv_state=None, decode=False,
+          state_out=None):
+    """x: (B, S, D) -> (y, (matrix_state, conv_state)); a decode writes the
+    new matrix state into ``state_out`` when given (see :func:`.ssm.mamba2`)."""
     B, S, D = x.shape
     d_inner, H, hd = mlstm_dims(cfg)
 
@@ -83,7 +88,7 @@ def mlstm(p, cfg, x, *, state=None, conv_state=None, decode=False):
         if state is None:
             state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                                 device=x.device)
-        y, new_state = ssd_decode_step(state, xh, log_f, k, q)
+        y, new_state = ssd_decode(state, xh, log_f, k, q, out=state_out)
     else:
         y, new_state = ssd(xh, log_f, k, q, chunk=cfg.ssm_chunk,
                            initial_state=state)

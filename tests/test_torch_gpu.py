@@ -29,7 +29,8 @@ from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import (decode_attention_ref,
-                                     flash_attention_ref, ssd_ref)
+                                     flash_attention_ref, ssd_decode_ref,
+                                     ssd_ref)
 from repro_torch.kernels.substrate import card_smem_limit
 from repro_torch.models import cnn_zoo
 from repro_torch import tracing
@@ -476,6 +477,104 @@ def test_ssd_scan_refuses_oversized_chunk(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         ssd_mod.ssd_scan(x, la, b, b, chunk=256)
     assert ssd_mod.launches == before
+
+
+# the one-token SSD decode at each path's widths, B, H, G, N, P:
+# zamba2-7b's tick (34 rows, 112 heads in 2 groups of b and c), zamba2-2.7b's
+# (80 heads, one map as a stride-0 view), xlstm-125m's mLSTM (4 heads of
+# 384, a map a head: G = H)
+SSD_DECODE_SHAPES = {"zamba2-7b": (34, 112, 2, 64, 64),
+                     "zamba2-2.7b": (4, 80, 1, 64, 64),
+                     "xlstm-125m": (4, 4, 4, 384, 384)}
+# the new state takes the plain version's roundings (two products and their
+# sum, no FMA contraction), so only expf's last bits could part them; y
+# sums N in another order (and with FMAs) and is rounded to bf16 once: TOL
+SSD_DECODE_STATE_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _ssd_decode_case(arch, device):
+    B, H, G, N, P = SSD_DECODE_SHAPES[arch]
+    rng = np.random.default_rng(31)
+    state = _randn(rng, (B, H, N, P), torch.float32, device)
+    x = _randn(rng, (B, 1, H, P), torch.bfloat16, device)
+    log_a = -torch.from_numpy(rng.uniform(0.0, 2.0, (B, 1, H))
+                              .astype(np.float32)).to(device)
+    if G == 1:
+        b, c = (_randn(rng, (B, 1, 1, N), torch.bfloat16, device)
+                .expand(B, 1, H, N) for _ in range(2))
+    else:   # cut from one projection, as the blocks hand them over
+        bc = _randn(rng, (B, 1, 2 * G * N + 8), torch.bfloat16, device)
+        b, c = (bc[..., i * G * N:(i + 1) * G * N].unflatten(2, (G, N))
+                for i in range(2))
+    return state, x, log_a, b, c
+
+
+@pytest.mark.parametrize("arch,out", [
+    *((a, o) for a in sorted(SSD_DECODE_SHAPES)
+      for o in ("alias", "distinct", "none")),
+    ("zamba2-7b", "graph")])
+def test_ssd_decode_kernel_matches_plain(cuda, arch, out):
+    """The decode kernel against its plain version, fp32 state and bf16 x:
+    writing the state in place (``out`` is the state), into another
+    buffer, or into a new tensor (the state left as it was); and captured
+    in a CUDA graph in place, as the graphed decode step runs it, two
+    replays equal to two eager calls bit for bit.  Each call counts a
+    launch (a capture too, a replay not), in ``decode_launches`` and in the
+    ``ssd_decode_launches`` counter."""
+    from repro_torch._device import capture
+    state, x, log_a, b, c = _ssd_decode_case(arch, cuda)
+    want_y, want_st = ssd_decode_ref(state, x, log_a, b, c)
+    before = state.clone()
+    launched = ssd_mod.decode_launches
+    counted = tracing.counters().get("ssd_decode_launches", 0)
+    if out == "graph":
+        eager = state.clone()
+        eager_y = [ssd_mod.ssd_decode(eager, x, log_a, b, c, out=eager)[0]
+                   for _ in range(2)]
+        graph, (y, st) = capture(
+            lambda s: ssd_mod.ssd_decode(s, x, log_a, b, c, out=s), (state,),
+            cuda)
+        assert st is state and torch.equal(state, before)
+        for k in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, eager_y[k]), k
+            if k == 0:
+                _close(y, want_y, TOL[torch.bfloat16])
+                torch.testing.assert_close(state, want_st,
+                                           **SSD_DECODE_STATE_TOL)
+        assert torch.equal(state, eager)
+        graph.reset()
+        calls = 3
+    else:
+        dst = {"alias": state, "none": None,
+               "distinct": torch.full_like(state, float("nan"))}[out]
+        y, st = ssd_mod.ssd_decode(state, x, log_a, b, c, out=dst)
+        torch.cuda.synchronize()
+        assert st is dst if dst is not None else st is not state
+        if out != "alias":
+            assert torch.equal(state, before)
+        _close(y, want_y, TOL[torch.bfloat16])
+        torch.testing.assert_close(st, want_st, **SSD_DECODE_STATE_TOL)
+        calls = 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert ssd_mod.decode_launches - launched == calls
+    assert tracing.counters()["ssd_decode_launches"] - counted == calls
+
+
+def test_ssd_decode_refuses_what_it_does_not_take(cuda):
+    """P of no multiple of 4, an ``out`` the kernel cannot write as it is,
+    a bf16 state: each raises, and nothing launches."""
+    state, x, log_a, b, c = _ssd_decode_case("zamba2-2.7b", cuda)
+    launched = ssd_mod.decode_launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ssd_mod.ssd_decode(state[..., :62], x[..., :62], log_a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_mod.ssd_decode(state, x, log_a, b, c,
+                           out=torch.empty_like(state).transpose(2, 3))
+    with pytest.raises(ValueError, match="float32 state"):
+        ssd_mod.ssd_decode(state.bfloat16(), x, log_a, b, c)
+    assert ssd_mod.decode_launches == launched
 
 
 def _decode_inputs(seed, B, Smax, H, Hk, hd, dtype, device, lengths=None):
@@ -1179,8 +1278,9 @@ def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
     and re-admitted every 8 ticks: equal tokens, logits within the
     engine's 3e-2, the caller's cache handed back; each tick launches the
     eager step's ``decode_attention`` calls, all through the name
-    ``layers.decode_attention``, and replays once; one capture, and one
-    more for a second cache."""
+    ``layers.decode_attention``, and replays once; the SSD decode kernel
+    is captured in the chain (its launches counted at capture only); one
+    capture, and one more for a second cache."""
     from repro_torch.launch import steps
     from repro_torch.models import layers as L
     # the bf16 kernel takes head_dim 32 and up
@@ -1213,13 +1313,21 @@ def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
             tt = torch.from_numpy(tok).to(cuda)
             ll = torch.from_numpy(lengths).to(cuda)
             launched, replays = da_mod.launches, steps.graph_replays
+            ssd_launched = ssd_mod.decode_launches
             L.decode_attention, seen[:] = counted, []
             try:
                 got_tok, got_logits, out = decode(params, cache, tt, ll)
             finally:
                 L.decode_attention = real
             graphed = da_mod.launches - launched
+            ssd_graphed = ssd_mod.decode_launches - ssd_launched
             want_logits, eager = model.decode_step(params, tt, eager, ll)
+            # the SSD decode launches once a Mamba-2 layer in the eager step
+            # and in the capture (the first tick runs both), never in a
+            # replay
+            ssd_eager = ssd_mod.decode_launches - ssd_launched - ssd_graphed
+            assert ssd_graphed == (2 * ssd_eager if t == 0 else 0)
+            assert (ssd_eager > 0) == arch.startswith("zamba2")
             want_tok = torch.argmax(want_logits[:, -1], dim=-1) \
                 .to(torch.int32)[:, None]
             assert graphed == da_mod.launches - launched - graphed > 0

@@ -3,6 +3,7 @@ never falls back to the CPU or counts a launch that did not happen."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -207,6 +208,21 @@ def test_build_hash_covers_sources_and_flags():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16
     assert set(_build.SOURCES) == set(_build.SIGNATURES)
     assert all((_build.CSRC / f"{n}.cu").is_file() for n in _build.SOURCES)
+
+
+@pytest.mark.parametrize("source,fn,argtypes", [
+    *((n, sig[0], sig[1]) for n, sig in _build.SIGNATURES.items()),
+    *((n, fn, types) for n, extra in _build.EXTRA_FUNCTIONS.items()
+      for fn, types in extra.items())])
+def test_c_entry_points_take_the_arguments_ctypes_passes(source, fn,
+                                                         argtypes):
+    """Each C function the wrappers call through ``ctypes`` is declared in
+    its source with as many parameters as its ``argtypes`` lists: ctypes
+    checks no count, and a missing one would read a register's garbage."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+    assert m, f"no extern \"C\" int {fn}(...) in {source}.cu"
+    assert len(m.group(1).split(",")) == len(argtypes)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -171,3 +171,28 @@ def test_ssd_ref_at_mlstm_widths_matches_jax():
     ty, tfin = ref.ssd_ref(*map(torch.from_numpy, (x, la, b, c)), chunk=128)
     _close(ty, jy, dict(rtol=2e-5, atol=2e-5))
     _close(tfin, jfin, dict(rtol=2e-5, atol=2e-5))
+
+
+@pytest.mark.parametrize("H,G,N,P", [(4, 4, 384, 384), (8, 2, 64, 64),
+                                     (8, 1, 64, 64)])
+def test_ssd_decode_plain_route_matches_jax(H, G, N, P):
+    """The port's one-token SSD decode on the CPU (its plain route, b and c
+    read by group: the mLSTM's a map a head, Zamba2's 2 groups and one
+    shared map) against the JAX package's ``ssd_decode_step`` given each
+    head's maps, fp32: the new state at 1e-6 (the same two products and
+    sum), y at 2e-5 (its sum over N in another order)."""
+    from repro.models import ssm as jssm
+    from repro_torch.kernels.ssd_scan import ssd_decode
+    rng = np.random.default_rng(N + G)
+    Bn = 3
+    state = rng.standard_normal((Bn, H, N, P)).astype(np.float32)
+    x = rng.standard_normal((Bn, 1, H, P)).astype(np.float32)
+    la = -np.abs(rng.standard_normal((Bn, 1, H))).astype(np.float32)
+    b = (rng.standard_normal((Bn, 1, G, N)) / np.sqrt(N)).astype(np.float32)
+    c = rng.standard_normal((Bn, 1, G, N)).astype(np.float32)
+    jy, jst = jssm.ssd_decode_step(*map(jnp.asarray, (
+        state, x, la, np.repeat(b, H // G, axis=2),
+        np.repeat(c, H // G, axis=2))))
+    ty, tst = ssd_decode(*map(torch.from_numpy, (state, x, la, b, c)))
+    _close(tst, jst, dict(rtol=1e-6, atol=1e-6))
+    _close(ty, jy, dict(rtol=2e-5, atol=2e-5))

@@ -27,11 +27,14 @@ import pytest
 import torch
 
 from repro_torch import tracing
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import ssd_ref
 from repro_torch.launch.steps import count_params
 from repro_torch.models import build_model, get_config
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.ssm import heads_of, ssd
+from repro_torch.runtime.sharding import flatten, unflatten
 from repro_torch.serving import Request, ServingEngine
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -248,3 +251,126 @@ def test_hybrid_positions_need_single_mamba_layers():
     with pytest.raises(ValueError, match="single Mamba-2 layers"):
         build_model(cfg.replace(pattern=(("mamba2", "mlp"),), n_layers=8),
                     device="cpu")
+
+
+def _old_decode_step(state, x, log_a, b, c):
+    """The one-token step as ``models/ssm.py`` ran it before the decode
+    kernel (``ssd_decode_step``), given each head's maps."""
+    a = torch.exp(log_a[:, 0].float())                  # (B, H)
+    st = state * a[:, :, None, None] + torch.einsum(
+        "bhn,bhp->bhnp", b[:, 0].float(), x[:, 0].float())
+    B, H, N, P = st.shape
+    y = torch.bmm(flatten(c[:, 0].float(), 0, 1)[:, None],
+                  flatten(st, 0, 1))[:, 0]
+    y = unflatten(y, 0, (B, H))
+    return y[:, None].to(x.dtype), st
+
+
+@pytest.mark.parametrize("out", ["none", "alias", "distinct"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_decode_plain_route_is_the_old_step(dtype, G, out):
+    """``ssd_decode`` on the CPU, b and c of G groups cut from one
+    projection: y and the new state equal the old step's on the maps
+    copied to each head bit for bit, whether the state goes into a new
+    tensor (the input left as it was), into the input itself or into
+    another buffer (which is returned)."""
+    rng = np.random.default_rng(G)
+    B, H, N, P = 3, 4, 6, 8
+    state = torch.from_numpy(rng.standard_normal((B, H, N, P))
+                             .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((B, 1, H, P))
+                         .astype(np.float32)).to(dtype)
+    log_a = -torch.from_numpy(np.abs(rng.standard_normal((B, 1, H)))
+                              .astype(np.float32))
+    bc = torch.from_numpy(rng.standard_normal((B, 1, 2 * G * N + 3))
+                          .astype(np.float32)).to(dtype)
+    b = bc[..., :G * N].unflatten(2, (G, N))
+    c = bc[..., G * N:2 * G * N].unflatten(2, (G, N))
+    want_y, want_st = _old_decode_step(state, x, log_a, heads_of(b, H),
+                                       heads_of(c, H))
+    before = state.clone()
+    dst = {"none": None, "alias": state,
+           "distinct": torch.full_like(state, float("nan"))}[out]
+    y, st = ssd_mod.ssd_decode(state, x, log_a, b, c, out=dst)
+    assert torch.equal(y, want_y) and torch.equal(st, want_st)
+    if dst is None:
+        assert torch.equal(state, before)
+    else:
+        assert st is dst
+        assert out == "alias" or torch.equal(state, before)
+
+
+def test_ssd_decode_refuses_mismatched_shapes():
+    """A state that is not (B, H, N, P) of x's rows and heads and b's N,
+    groups that do not divide the heads, or an ``out`` of another shape or
+    dtype: each raises before anything runs."""
+    B, H, N, P = 2, 4, 6, 8
+    state = torch.zeros(B, H, N, P)
+    x, la = torch.zeros(B, 1, H, P), torch.zeros(B, 1, H)
+    b = torch.zeros(B, 1, 2, N)
+    for args in [(state[:, :3], x, la, b, b), (state, x, la, b[..., :5], b),
+                 (state, x[:, :, :3], la[:, :, :3], b, b),
+                 (state, torch.zeros(B, 2, H, P), torch.zeros(B, 2, H),
+                  torch.zeros(B, 2, 2, N), torch.zeros(B, 2, 2, N)),
+                 (state, x, la, torch.zeros(B, 1, 3, N),
+                  torch.zeros(B, 1, 3, N))]:
+        with pytest.raises(ValueError, match="expected state"):
+            ssd_mod.ssd_decode(*args)
+    for out in (torch.zeros(B, H, N, P, dtype=torch.bfloat16),
+                torch.zeros(B, H, P, N)):
+        with pytest.raises(ValueError, match="out must be"):
+            ssd_mod.ssd_decode(state, x, la, b, b, out=out)
+
+
+@pytest.mark.parametrize("B,H,P,tile", [
+    (34, 112, 64, 64),      # zamba2-7b's chat tick: a CTA a head
+    (4, 80, 64, 64),        # zamba2-2.7b's engine at width 4
+    (4, 4, 384, 32),        # xlstm-125m's mLSTM at width 4: 192 CTAs
+    (1, 4, 384, 32),        # one row: the smallest tile
+    (2, 2, 80, 40),         # P of no power of 2: a half stays whole
+    (1, 2, 16, 16)])        # P under the smallest tile
+def test_decode_tile_follows_the_shape(B, H, P, tile):
+    """The P columns a CTA of the decode kernel covers: all of P up to 128,
+    halved while the grid is short of two CTAs an SM, never below 32 nor
+    to a width of no multiple of 4."""
+    assert ssd_mod.decode_tile(B, H, P) == tile
+    assert tile % 4 == 0 and tile <= ssd_mod.DECODE_MAX_TILE
+
+
+def test_decode_writes_the_cache_the_copying_step_wrote(monkeypatch):
+    """Three decode steps of the reduced zamba2-7b over two rows of
+    different lengths, from a prefill's cache: each Mamba-2 layer hands
+    ``ssd_decode`` its cache slice as the state and as ``out`` (the update
+    in place), and the logits and every cache leaf equal, bit for bit, a
+    run where the kernel wrapper ignores ``out`` and returns a new state
+    that ``apply_sublayer`` copies in, as before the decode kernel."""
+    cfg, model = _small()
+    params = _params(model)
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13),
+                                           dtype=np.int32))
+    _, cache = model.prefill(params, prompt, _fp32_cache(model, 2, 32))
+    copied = L.tree_map(torch.clone, cache)
+    real, in_place = ssm.ssd_decode, []
+
+    def recording(state, x, log_a, b, c, *, out=None):
+        in_place.append(out is state)
+        return real(state, x, log_a, b, c, out=out)
+
+    def copying(state, x, log_a, b, c, *, out=None):
+        return real(state, x, log_a, b, c)
+
+    lengths = torch.tensor([13, 9], dtype=torch.int32)
+    for i in range(3):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1),
+                                            dtype=np.int32))
+        monkeypatch.setattr(ssm, "ssd_decode", recording)
+        got, cache = model.decode_step(params, tok, cache, lengths + i)
+        monkeypatch.setattr(ssm, "ssd_decode", copying)
+        want, copied = model.decode_step(params, tok, copied, lengths + i)
+        monkeypatch.undo()
+        assert torch.equal(got, want), i
+        for a, b in zip(L.tree_leaves(cache), L.tree_leaves(copied)):
+            assert torch.equal(a, b), i
+    assert in_place == [True] * 3 * cfg.n_layers
