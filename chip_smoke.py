@@ -563,12 +563,10 @@ def prefill_phase(dev, resources, net, out_dir, launches):
     spec = TensorSpec((B, S, H, HD), torch.bfloat16)
     graph = kernel_graph(spec, weights, state_dim=STATE, device=dev)
 
-    fa_mod.launches = 0
-    ssd_mod.launches = 0
+    start = kernel_launches()
     outputs, db = scission_loop("prefill", graph, x, resources, net, dev,
                                 out_dir)
-    launches.update({"flash_attention": fa_mod.launches,
-                     "ssd_scan": ssd_mod.launches})
+    launches.update(kernel_launches(start, ("flash_attention", "ssd_scan")))
     require_launches(launches)
     check_replay("prefill", graph, x, dev)
 
@@ -749,11 +747,12 @@ def decode_phase(dev, resources, net, out_dir, launches):
                          cache_len=DS, kv_heads=DHK, head_dim=DHD,
                          caches=caches, device=dev)
 
-    da_mod.launches = 0
+    start = kernel_launches()
     outputs, _ = scission_loop("decode", graph, q, resources, net, dev,
                                out_dir)
-    launches["decode_attention"] = da_mod.launches
-    require_launches({"decode_attention": da_mod.launches})
+    got = kernel_launches(start, ("decode_attention",))
+    launches.update(got)
+    require_launches(got)
     check_replay("decode", graph, q, dev)
 
     # -- whole-graph checks ----------------------------------------------
@@ -1088,20 +1087,27 @@ def decode_lengths():
     return recording()
 
 
-def kernel_launches() -> dict:
-    """The wrappers' launch counts now, the SSD's wide route's apart, and
-    the plain versions' recomputations the autograd Functions' backward
-    runs (training)."""
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
-    return {"flash_attention": fa_mod.launches,
-            "decode_attention": da_mod.launches,
-            "ssd_scan": ssd_mod.launches,
-            "ssd_scan wide route": ssd_mod.wide_launches,
-            "ssd_decode": ssd_mod.decode_launches,
-            "flash_attention backward (plain)": fa_mod.backward_launches,
-            "ssd_scan backward (plain)": ssd_mod.backward_launches}
+# each count of kernel_launches, by the tracing counter that holds it
+LAUNCH_COUNTERS = {
+    "flash_attention": "flash_attention_launches",
+    "decode_attention": "decode_attention_launches",
+    "ssd_scan": "ssd_scan_launches",
+    "ssd_scan wide route": "ssd_scan_wide_launches",
+    "ssd_decode": "ssd_decode_launches",
+    "flash_attention backward (plain)": "flash_attention_backward_launches",
+    "ssd_scan backward (plain)": "ssd_scan_backward_launches"}
+KERNELS = ("flash_attention", "ssd_scan", "decode_attention")
+
+
+def kernel_launches(since: dict | None = None,
+                    keys=tuple(LAUNCH_COUNTERS)) -> dict:
+    """The counts of ``keys`` (``tracing``'s counters): the kernels'
+    launches, the SSD's wide route's apart, and the plain versions'
+    recomputations the autograd Function's backward runs (training);
+    since the process began, or since ``since``, an earlier reading."""
+    from repro_torch import tracing
+    counts, since = tracing.counters(), since or {}
+    return {k: counts[LAUNCH_COUNTERS[k]] - since.get(k, 0) for k in keys}
 
 
 def heaviest(steps: list) -> list[int]:
@@ -1136,7 +1142,7 @@ def serve(label, model, params, requests, width, max_len) -> dict:
     with decode_lengths() as steps:
         done = eng.run()
     torch.cuda.synchronize()
-    in_run = {k: n - before[k] for k, n in kernel_launches().items()}
+    in_run = kernel_launches(before)
     stats = eng.stats
     ttft = [r.ttft_s * 1e3 for r in done]
     out = dict(requests=stats.requests, tokens=stats.tokens,
@@ -1193,16 +1199,13 @@ def lm_granite(dev, resources, net, out_dir, cfg=None) -> dict:
     step."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.graph_adapter import lm_to_graph
     from repro_torch.serving import Request
 
     label = "lm granite-8b"
     model, params = lm_model("granite-8b", dev, cfg)
     vocab = model.cfg.vocab
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    start = kernel_launches()
     graph = lm_to_graph(model, params, batch=1, seq_len=LM_GRAPH_SEQ)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     tokens = torch.randint(0, vocab, (1, LM_GRAPH_SEQ), generator=gen,
@@ -1212,7 +1215,7 @@ def lm_granite(dev, resources, net, out_dir, cfg=None) -> dict:
           f"{LM_GRAPH_SEQ}")
     outputs, db = scission_loop("lm-granite", graph, tokens, resources, net,
                                 dev, out_dir)
-    require_launches({"flash_attention": fa_mod.launches})
+    require_launches(kernel_launches(start, ("flash_attention",)))
     check_replay(label, graph, tokens, dev,
                  kernel_of=lambda n: "flash_attention"
                  if n.kind == "block" else None)
@@ -1232,8 +1235,8 @@ def lm_granite(dev, resources, net, out_dir, cfg=None) -> dict:
         0, vocab, int(rng.integers(e["prompt"][0], e["prompt"][1] + 1))),
         max_new_tokens=e["new"]) for i in range(e["requests"])]
     run = serve(label, model, params, requests, e["width"], e["max_len"])
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches}
+    launches = kernel_launches(start, ("flash_attention",
+                                       "decode_attention"))
     require_launches(launches)
     done = run.pop("done")
     check = teacher_forced(label, model, params, done)
@@ -1249,18 +1252,17 @@ def decode_captures():
     decode launches inside the capture)."""
     import contextlib
 
-    from repro_torch import _device
-    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch import _device, tracing
 
     @contextlib.contextmanager
     def patched():
         real, captures = _device.capture_chain, []
 
         def counted(*args, **kwargs):
-            before = ssd_mod.decode_launches
+            before = tracing.counters()["ssd_decode_launches"]
             chain = real(*args, **kwargs)
-            captures.append((len(chain.graphs),
-                             ssd_mod.decode_launches - before))
+            captures.append((len(chain.graphs), tracing.counters()[
+                "ssd_decode_launches"] - before))
             return chain
         _device.capture_chain = counted
         try:
@@ -1340,9 +1342,6 @@ def lm_zamba(dev, cfg=None) -> dict:
     heaviest decode step."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.serving import Request
 
     label = "lm zamba2-2.7b"
@@ -1352,14 +1351,11 @@ def lm_zamba(dev, cfg=None) -> dict:
     requests = [Request(rid=i, prompt=rng.integers(
         0, model.cfg.vocab, int(rng.choice(e["prompts"]))),
         max_new_tokens=e["new"]) for i in range(e["requests"])]
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
-    ssd_mod.decode_launches = 0
+    start = kernel_launches()
     with decode_captures() as captures:
         run = serve(label, model, params, requests, e["width"], e["max_len"])
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches,
-                "ssd_scan": ssd_mod.launches,
-                "ssd_decode": ssd_mod.decode_launches}
+    launches = kernel_launches(start, ("flash_attention", "decode_attention",
+                                       "ssd_scan", "ssd_decode"))
     require_launches(launches)
     check_captures(label, captures, model.cfg)
     done = run.pop("done")
@@ -1387,9 +1383,6 @@ def lm_zamba2_7b(dev) -> dict:
     per-step counts and the tick's times."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.serving import Request
 
     label = "lm zamba2-7b"
@@ -1400,14 +1393,11 @@ def lm_zamba2_7b(dev) -> dict:
     requests = [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab, e["prompts"][i % len(e["prompts"])]),
         max_new_tokens=e["new"]) for i in range(e["requests"])]
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
-    ssd_mod.decode_launches = 0
+    start = kernel_launches()
     with decode_captures() as captures:
         run = serve(label, model, params, requests, e["width"], e["max_len"])
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches,
-                "ssd_scan": ssd_mod.launches,
-                "ssd_decode": ssd_mod.decode_launches}
+    launches = kernel_launches(start, ("flash_attention", "decode_attention",
+                                       "ssd_scan", "ssd_decode"))
     require_launches(launches)
     check_captures(label, captures, cfg)
     in_run = run["launches_in_run"]
@@ -1705,16 +1695,12 @@ def lm_example(dev) -> dict:
     heaviest decode step."""
     import importlib.util
 
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
-
     spec = importlib.util.spec_from_file_location(
         "partition_and_serve_torch",
         ROOT / "examples" / "partition_and_serve_torch.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    start = kernel_launches()
     cwd = os.getcwd()
     os.chdir(ROOT)
     try:
@@ -1722,8 +1708,8 @@ def lm_example(dev) -> dict:
             model, params, eng, done = example.main(["--device", str(dev)])
     finally:
         os.chdir(cwd)
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches}
+    launches = kernel_launches(start, ("flash_attention",
+                                       "decode_attention"))
     require_launches(launches)
     check = teacher_forced("lm example", model, params, done)
     return dict(launches=launches, check=check, cfg=model.cfg,
@@ -2108,15 +2094,12 @@ def lm_qwen_moe(dev, resources, net, cfg=None) -> dict:
     path's launches, numbers and its heaviest decode step's lengths."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.graph_adapter import moe_to_graph
 
     label = "lm qwen2-moe-a2.7b"
     model, params = lm_model("qwen2-moe-a2.7b", dev, cfg)
     c = model.cfg
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    start = kernel_launches()
     moe_p = {k: v[0] for k, v in
              params["layers"]["s1_moe"]["moe"].items() if k != "shared"}
     graph = moe_to_graph(moe_p, batch=1, seq_len=MOE_GRAPH_SEQ,
@@ -2132,8 +2115,8 @@ def lm_qwen_moe(dev, resources, net, cfg=None) -> dict:
     requests = lambda: _requests(c.vocab, QWEN_ENGINE, SEED + 2)  # noqa
     e = QWEN_ENGINE
     run = serve(label, model, params, requests(), e["width"], e["max_len"])
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches}
+    launches = kernel_launches(start, ("flash_attention",
+                                       "decode_attention"))
     require_launches(launches)
     run.pop("done")
     check = engine_vs_plain(label, model, params, requests, e["width"],
@@ -2155,16 +2138,12 @@ def lm_xlstm(dev, resources, net, cfg=None) -> dict:
     engine-against-plain check; returns the path's launches (the SSD's
     wide route's among them) and numbers."""
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.graph_adapter import xlstm_to_graph
 
     label = "lm xlstm-125m"
     model, params = lm_model("xlstm-125m", dev, cfg)
     c = model.cfg
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
-    ssd_mod.wide_launches = 0
+    start = kernel_launches()
     t0 = time.perf_counter()
     graph = xlstm_to_graph(model, params, batch=1, seq_len=XLSTM_GRAPH_SEQ)
     print(f"{label} graph built and traced in "
@@ -2175,19 +2154,21 @@ def lm_xlstm(dev, resources, net, cfg=None) -> dict:
     graph_run = dag_scission_loop("lm-xlstm", graph, tokens, resources, net,
                                   dev)
     del graph, tokens
-    dag = {"ssd_scan (DAG loop)": ssd_mod.launches,
-           "ssd_scan wide route (DAG loop)": ssd_mod.wide_launches}
+    n = kernel_launches(start)
+    dag = {"ssd_scan (DAG loop)": n["ssd_scan"],
+           "ssd_scan wide route (DAG loop)": n["ssd_scan wide route"]}
     require_launches(dag)
     requests = lambda: _requests(c.vocab, XLSTM_ENGINE, SEED + 3)  # noqa
     e = XLSTM_ENGINE
     t0 = time.perf_counter()
-    ssd_mod.launches = ssd_mod.wide_launches = ssd_mod.decode_launches = 0
+    start = kernel_launches()
     run = serve(label, model, params, requests(), e["width"], e["max_len"])
     if run["path"] != "exact":
         raise RuntimeError(f"{label}: admission was not the exact path")
-    launches = {"ssd_scan (engine)": ssd_mod.launches,
-                "ssd_scan wide route (engine)": ssd_mod.wide_launches,
-                "ssd_decode (engine)": ssd_mod.decode_launches,
+    n = kernel_launches(start)
+    launches = {"ssd_scan (engine)": n["ssd_scan"],
+                "ssd_scan wide route (engine)": n["ssd_scan wide route"],
+                "ssd_decode (engine)": n["ssd_decode"],
                 "ssd_scan wide route (engine's run, warm-up excluded)":
                     run["launches_in_run"]["ssd_scan wide route"]}
     require_launches(launches)
@@ -2205,16 +2186,17 @@ def lm_xlstm(dev, resources, net, cfg=None) -> dict:
 
 def _route_counter(module, name, counts, key_of):
     """``module.<name>`` (a kernel entry point a model calls) wrapped so
-    that each call adds the launches it made, read from the wrapper's own
-    count, to ``counts[key_of(args, kwargs)]``; returns the original."""
-    import importlib
+    that each call adds the launches it made, read from ``tracing``'s
+    ``<name>_launches`` counter, to ``counts[key_of(args, kwargs)]``;
+    returns the original."""
+    from repro_torch import tracing
     real = getattr(module, name)
-    kernel = importlib.import_module(real.__module__)
+    counter = f"{name}_launches"
 
     def counted(*args, **kwargs):
-        before = kernel.launches
+        before = tracing.counters()[counter]
         out = real(*args, **kwargs)
-        counts[key_of(args, kwargs)] += kernel.launches - before
+        counts[key_of(args, kwargs)] += tracing.counters()[counter] - before
         return out
 
     setattr(module, name, counted)
@@ -2230,9 +2212,6 @@ def lm_whisper(dev, resources, net, cfg=None) -> dict:
     import types
 
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import encdec, vision
     from repro_torch.models import layers as L
@@ -2261,7 +2240,7 @@ def lm_whisper(dev, resources, net, cfg=None) -> dict:
              (L, "decode_attention", _route_counter(
                  L, "decode_attention", routes,
                  lambda a, k: "decode self"))]
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    start = kernel_launches()
     prefill, decode = StepClock(), StepClock()
     step_p = prefill.wrap(make_prefill_step(model))
     step_d = decode.wrap(make_decode_step(model))
@@ -2285,8 +2264,9 @@ def lm_whisper(dev, resources, net, cfg=None) -> dict:
     finally:
         for module, name, real in saved:
             setattr(module, name, real)
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches, **dict(routes)}
+    launches = {**kernel_launches(start, ("flash_attention",
+                                          "decode_attention")),
+                **dict(routes)}
     require_launches(launches)
     gen_toks = torch.cat(out, dim=1).cpu().numpy()
     p_ms, d_ms = prefill.ms(), decode.ms()
@@ -2324,9 +2304,6 @@ def lm_internvl(dev, cfg=None) -> dict:
     import types
 
     import torch
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import get_config, vision
 
@@ -2343,7 +2320,7 @@ def lm_internvl(dev, cfg=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     prompt = torch.randint(0, c.vocab, (v["batch"], v["tokens"]),
                            generator=gen, device=dev, dtype=torch.int32)
-    fa_mod.launches = da_mod.launches = ssd_mod.launches = 0
+    start = kernel_launches()
     prefill, decode = StepClock(), StepClock()
     step_p = prefill.wrap(make_prefill_step(model))
     step_d = decode.wrap(make_decode_step(model))
@@ -2362,8 +2339,8 @@ def lm_internvl(dev, cfg=None) -> dict:
     # the last step's lengths (the heaviest): its cache length plus one
     last = clen.tolist()
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa_mod.launches,
-                "decode_attention": da_mod.launches}
+    launches = kernel_launches(start, ("flash_attention",
+                                       "decode_attention"))
     require_launches(launches)
     p_ms, d_ms = prefill.ms(), decode.ms()
     print(f"{label}: prefill step ({v['batch']} x ({c.n_img_tokens} patch "
@@ -2815,16 +2792,6 @@ TRAIN_LEAF_TOL = 0.4
 LEAF_FLOOR = 1e-4
 
 
-def zero_launches() -> None:
-    """Every count of :func:`kernel_launches` set to 0."""
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
-    fa_mod.launches = fa_mod.backward_launches = 0
-    ssd_mod.launches = ssd_mod.wide_launches = ssd_mod.backward_launches = 0
-    ssd_mod.decode_launches = da_mod.launches = 0
-
-
 def train_steps(model, step_fn, params, opt, data, start, stop, sup=None,
                 on_step=None, prepare=None) -> tuple:
     """Steps ``[start, stop)`` of ``step_fn`` on the pipeline's batches;
@@ -2931,11 +2898,11 @@ def train_xlstm(dev, card, peak_flops, ckpt_dir) -> dict:
         if step + 1 == t["ckpt_every"]:
             saved.update(L.tree_map(lambda a: a.clone(), state))
 
-    zero_launches()
+    start = kernel_launches()
     params, opt, run = train_steps(model, make_train_step(model, adamw),
                                    params, opt, data, 0, t["steps"], sup,
                                    keep)
-    launches = kernel_launches()
+    launches = kernel_launches(start)
     report_training(card, label, cfg, run, t["batch"], t["seq"], peak_flops,
                     launches)
     losses = run["losses"]
@@ -2990,25 +2957,22 @@ def train_xlstm(dev, card, peak_flops, ckpt_dir) -> dict:
 
 
 def _cut_gradients():
-    """The kernels launched outside their autograd Functions, as a context
+    """The kernels launched outside their autograd Function, as a context
     manager: the outputs carry no ``grad_fn``, so every gradient stops at
-    the kernels (the fault the Functions repair) while the loss stays as
+    the kernels (the fault the Function repairs) while the loss stays as
     it was."""
     import contextlib
-    import types
 
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels.substrate import KernelFunction
 
     @contextlib.contextmanager
     def patched():
-        saved = fa_mod.FlashAttention, ssd_mod.SsdScan
-        fa_mod.FlashAttention = types.SimpleNamespace(apply=fa_mod._launch)
-        ssd_mod.SsdScan = types.SimpleNamespace(apply=ssd_mod._launch)
+        KernelFunction.apply = staticmethod(
+            lambda name, launch, plain, *inputs: launch(*inputs))
         try:
             yield
         finally:
-            fa_mod.FlashAttention, ssd_mod.SsdScan = saved
+            del KernelFunction.apply
 
     return patched()
 
@@ -3137,7 +3101,7 @@ def train_family(dev, card, peak_flops, label, t, kernels, cfg=None,
     counts = Counter()
     saved = [(module, name, _route_counter(module, name, counts, key_of))
              for module, name, key_of in routes or ()]
-    zero_launches()
+    start = kernel_launches()
     try:
         params, opt, run = train_steps(
             model, make_train_step(model, AdamWConfig()), params, opt, data,
@@ -3145,7 +3109,7 @@ def train_family(dev, card, peak_flops, label, t, kernels, cfg=None,
     finally:
         for module, name, real in saved:
             setattr(module, name, real)
-    launches = kernel_launches()
+    launches = kernel_launches(start)
     report_training(card, label, c, run, t["batch"], t["seq"], peak_flops,
                     launches)
     print(f"[{card}] train {label}: losses "
@@ -3213,8 +3177,8 @@ def train_kernel_checks(dev) -> dict:
                                    f"(bound {FN_GRAD_TOL})")
         return gaps
 
-    def counted(name, *keys):
-        seen = {k: kernel_launches()[k] for k in keys}
+    def counted(name, start, *keys):
+        seen = kernel_launches(start, keys)
         if any(v != 1 for v in seen.values()):
             raise RuntimeError(f"{name}: launches {seen}, not one each way")
         return seen
@@ -3223,7 +3187,7 @@ def train_kernel_checks(dev) -> dict:
     out = {}
 
     def flash_case(name, q_shape, kv_shape, causal, note):
-        zero_launches()
+        start = kernel_launches()
         q, k, v = randn(*q_shape), randn(*kv_shape), randn(*kv_shape)
         o = fa_mod.flash_attention(q, k, v, causal=causal)
         o_ref = ref.flash_attention_ref(q, k, v, causal=causal)
@@ -3235,7 +3199,7 @@ def train_kernel_checks(dev) -> dict:
             shapes=f"q {tuple(q.shape)}, k, v {tuple(k.shape)} bf16 "
                    f"{'causal' if causal else 'non-causal'} ({note})",
             err=err, gaps=gaps,
-            launches=counted(name, "flash_attention",
+            launches=counted(name, start, "flash_attention",
                              "flash_attention backward (plain)"),
             ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go,
                                                    retain_graph=True),
@@ -3253,7 +3217,7 @@ def train_kernel_checks(dev) -> dict:
                "whisper-medium's cross-attention")
 
     def ssd_case(name, x, la, b, c, shared, note, *wide):
-        zero_launches()
+        start = kernel_launches()
         B_, S_, H_, _ = x.shape
         N_ = b.shape[-1]
         inputs = (x, la, b, c)
@@ -3273,8 +3237,8 @@ def train_kernel_checks(dev) -> dict:
                    f"{' expanded over the heads' if shared else ''}, log_a "
                    f"fp32, chunk 128 ({note}); final-state max abs err "
                    f"{fin_err:.4g}", err=err, gaps=gaps,
-            launches=counted(name, "ssd_scan", "ssd_scan backward (plain)",
-                             *wide),
+            launches=counted(name, start, "ssd_scan",
+                             "ssd_scan backward (plain)", *wide),
             ms=time_ms(lambda: torch.autograd.grad(
                 (y, fin), inputs, seeds, retain_graph=True), runs=5))
 
@@ -3575,11 +3539,11 @@ def mesh_zamba(dev, card, mesh) -> dict:
             def prepare(batch):
                 return shard_args(model.cfg, shape, mesh, rules,
                                   {"batch": batch})["batch"]
-        zero_launches()
+        start = kernel_launches()
         params, opt, run = train_steps(
             model, make_train_step(model, AdamWConfig(), **kw), params, opt,
             data, 0, t["steps"], prepare=prepare)
-        run["launches"] = kernel_launches()
+        run["launches"] = kernel_launches(start)
         run["params"] = _host(params)
         runs[sharded] = run
         del model, params, opt
@@ -3652,7 +3616,7 @@ def mesh_granite(dev, card, mesh) -> dict:
             decode = make_decode_step(model, rules=drules, mesh=mesh)
         pre_clock, dec_clock = StepClock(), StepClock()
         prefill, decode = pre_clock.wrap(prefill), dec_clock.wrap(decode)
-        zero_launches()
+        start = kernel_launches()
         outs, toks = [], []
         with torch.no_grad():
             logits, cache = prefill(p, cache, batch)
@@ -3671,7 +3635,7 @@ def mesh_granite(dev, card, mesh) -> dict:
                 toks.append(tok.full_tensor() if sharded else tok)
         runs[sharded] = dict(
             logits=[o.full_tensor() if sharded else o for o in outs],
-            tokens=torch.cat(toks, dim=1), launches=kernel_launches(),
+            tokens=torch.cat(toks, dim=1), launches=kernel_launches(start),
             prefill_ms=pre_clock.ms()[0],
             decode_ms=statistics.median(dec_clock.ms()))
         del cache, outs
@@ -3745,9 +3709,9 @@ def split_decode_case(dev, card, arch) -> dict:
             starts=start, return_lse=True, **kw)
             for r, (end, start) in enumerate(bounds)]
 
-    zero_launches()
+    start = kernel_launches()
     parts = slices()
-    launches = kernel_launches()["decode_attention"]
+    launches = kernel_launches(start)["decode_attention"]
     if launches != R:
         raise RuntimeError(f"split decode {arch}: {launches} launches for "
                            f"{R} slices")
@@ -4227,31 +4191,22 @@ def paper_phase(dev) -> None:
     from benchmarks import bench_serving_torch as bs
     from benchmarks import common_torch as ct
 
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
-
-    def counts():
-        return {"flash_attention": fa_mod.launches,
-                "ssd_scan": ssd_mod.launches,
-                "decode_attention": da_mod.launches}
-
     t0 = time.perf_counter()
     ct.CACHE_ROOT = str(ROOT / "results" / "chip_smoke_benchdb")
     shutil.rmtree(ct.CACHE_ROOT, ignore_errors=True)
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    start = kernel_launches()
     rows = bp.smoke(device=dev) + bp.smoke_frontier(device=dev)
     serving = bs.smoke(device=dev)
     rows += bq.run(quick=True, device=dev)
-    zoo_launches = counts()
+    zoo_launches = kernel_launches(start, KERNELS)
     print(f"paper-path launches on the zoo's benchmarks {zoo_launches}")
     if any(zoo_launches.values()):
         raise RuntimeError("the paper path's zoo benchmarks launched a "
                            "hand-written kernel")
     # the DAG gate's enc-dec LM attends through flash_attention
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    start = kernel_launches()
     rows += bp.smoke_dag(device=dev)
-    dag_launches = counts()
+    dag_launches = kernel_launches(start, KERNELS)
     print(f"paper-path launches on the DAG gate {dag_launches}")
     if not dag_launches["flash_attention"]:
         raise RuntimeError("the DAG gate's enc-dec LM launched no "
@@ -4291,14 +4246,11 @@ def analysis_phase(dev) -> None:
                                                   lint_candidates)
     from repro_torch.analysis.tiling import misaligned_candidates
     from repro_torch.core.graph import fuse_blocks
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.kernels.substrate import (DEFAULT_CANDIDATES,
                                                card_smem_limit)
 
     t0 = time.perf_counter()
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    start = kernel_launches()
     limit = card_smem_limit(dev)
     rc = cli.main(["--device", str(dev), "--strict", "--allow", "SCN309",
                    "--allow", "SCN310", "kernels", "graphs", "tiling", "jaxpr", "cost",
@@ -4345,9 +4297,7 @@ def analysis_phase(dev) -> None:
     if not vv["ok"]:
         raise RuntimeError("--verify-smem: a launch disagreed with the "
                            "shared-memory analysis")
-    counts = {"flash_attention": fa_mod.launches,
-              "ssd_scan": ssd_mod.launches,
-              "decode_attention": da_mod.launches}
+    counts = kernel_launches(start, KERNELS)
     print(f"analysis-phase launches {counts}")
     require_launches(counts)
     print(f"analysis phase: {time.perf_counter() - t0:.1f} s of wall time")
@@ -4425,18 +4375,13 @@ def main() -> int:
             r["mesh"] = mesh[r["name"]]
 
     # the zoo path runs none of the hand-written kernels
-    from repro_torch.kernels import decode_attention as da_mod
-    from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ssd_scan as ssd_mod
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    start = kernel_launches()
     sys.path.insert(0, str(ROOT))
     fp32 = next(v for k, v in FP32_PEAKS.items() if k in name)
     t0 = time.perf_counter()
     zoo_phase(dev, args.out, fp32, peak_bw)
     print(f"zoo phase: {time.perf_counter() - t0:.1f} s of wall time")
-    zoo_launches = {"flash_attention": fa_mod.launches,
-                    "ssd_scan": ssd_mod.launches,
-                    "decode_attention": da_mod.launches}
+    zoo_launches = kernel_launches(start, KERNELS)
     print(f"zoo-path launches {zoo_launches}")
     if any(zoo_launches.values()):
         raise RuntimeError("the zoo path launched a hand-written kernel")

@@ -4,7 +4,8 @@ time: ``_build`` compiles the sources at the first launch on the card.
 
 The kernel entry points are ``ops.flash_attention``,
 ``ops.decode_attention`` and ``ops.ssd_scan``; the submodules of the same
-names hold each kernel's wrapper and its ``launches`` counter.
+names hold each kernel's wrapper, which counts its launches under
+``<kernel>_launches`` in :mod:`..tracing`.
 """
 
 from .ops import decode_attention_node, flash_attention_node, ssd_scan_node

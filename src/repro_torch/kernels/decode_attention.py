@@ -5,10 +5,11 @@ kernel to Hopper.
 tensors, the tensor-core kernel for bf16 and the SIMT kernel for fp32, and
 takes the plain PyTorch version (:func:`.ref.decode_attention_ref`) for
 tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
-launches a kernel or raises; it never falls back.  ``launches`` counts
-calls that launched the kernel: a call launches a pass over the split
-cache and, when the cache is split, a pass that combines the splits, and
-counts once.  Each call is a ``kernel.decode_attention`` span of
+launches a kernel or raises; it never falls back.  The
+``decode_attention_launches`` counter of :mod:`..tracing` counts calls
+that launched the kernel: a call launches a pass over the split cache
+and, when the cache is split, a pass that combines the splits, and counts
+once.  Each call is a ``kernel.decode_attention`` span of
 :mod:`..tracing`.
 
 ``lengths`` must lie in ``[0, Smax]``.  The launch path never reads them
@@ -45,8 +46,6 @@ from .. import tracing
 from . import _build, sharded
 from .ref import decode_attention_ref
 from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
-
-launches = 0
 
 THREADS = 256           # csrc/decode_attention.cu kThreads (fp32 route)
 WARPS = THREADS // 32
@@ -302,7 +301,6 @@ def decode_attention(q, k, v, lengths, *, softcap=None, window=None,
 
 def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,
             return_lse=False, out=None):
-    global launches
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype or lengths.dtype != torch.int32 or \
             (starts is not None and starts.dtype != torch.int32):
@@ -349,5 +347,5 @@ def _launch(q, k, v, lengths, softcap, window, block_k, starts=None,
         window or 0, plan["smem_bytes"],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", code)
-    launches += 1
+    tracing.count("decode_attention_launches")
     return (o, lse) if return_lse else o

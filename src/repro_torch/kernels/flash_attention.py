@@ -4,17 +4,17 @@
 tensors, the tensor-core kernel for bf16 and the SIMT kernel for fp32, and
 takes the plain PyTorch version (:func:`.ref.flash_attention_ref`) for
 tensors on the CPU or on ``meta`` (shape tracing).  On a CUDA tensor it
-launches a kernel or raises; it never falls back.  ``launches`` counts the
-kernel launches.
+launches a kernel or raises; it never falls back.  The
+``flash_attention_launches`` counter of :mod:`..tracing` counts the kernel
+launches.
 
 The kernel has no backward.  When gradients are asked for (grad mode on
 and an input that requires grad), a CUDA call goes through
-:class:`FlashAttention`, whose forward launches the kernel and whose
-backward differentiates the plain version recomputed from the saved
-inputs, the function the reference's models differentiate;
-``backward_launches`` counts those recomputations.  Each call is a
-``kernel.flash_attention`` span of :mod:`..tracing`, each backward
-a ``kernel.flash_attention.backward`` span with CUDA events.
+:class:`.substrate.KernelFunction`, whose backward differentiates the plain
+version recomputed from the saved inputs
+(``flash_attention_backward_launches``).  Each call is a
+``kernel.flash_attention`` span of :mod:`..tracing`, each backward a
+``kernel.flash_attention.backward`` span with CUDA events.
 """
 
 from __future__ import annotations
@@ -26,10 +26,8 @@ import torch
 from .. import tracing
 from . import _build, sharded
 from .ref import flash_attention_ref
-from .substrate import DEFAULT_PARAMS, card_smem_limit, serving_param
-
-launches = 0
-backward_launches = 0
+from .substrate import (DEFAULT_PARAMS, KernelFunction, card_smem_limit,
+                        serving_param)
 
 MMA_HEAD_DIMS = range(16, 257, 16)     # head_dims of the bf16 route
 MAX_BLOCK_Q = 256                      # query rows of a CTA (bf16 route)
@@ -178,34 +176,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
             raise ValueError(f"flash_attention: unsupported device {q.device}")
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                         v.requires_grad):
-            return FlashAttention.apply(q, k, v, causal, window, softcap,
-                                        block_q, block_k)
+            return KernelFunction.apply(
+                "flash_attention",
+                lambda *t: _launch(*t, causal, window, softcap, block_q,
+                                   block_k),
+                lambda *t: flash_attention_ref(*t, causal=causal,
+                                               window=window, softcap=softcap),
+                q, k, v)
         return _launch(q, k, v, causal, window, softcap, block_q, block_k)
-
-
-class FlashAttention(torch.autograd.Function):
-    """The kernel forward, the plain version's gradient backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k):
-        ctx.save_for_backward(q, k, v)
-        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
-        return _launch(q, k, v, causal, window, softcap, block_q, block_k)
-
-    @staticmethod
-    def backward(ctx, grad):
-        global backward_launches
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with tracing.span("kernel.flash_attention.backward",
-                          device=grad.is_cuda), torch.enable_grad():
-            o = flash_attention_ref(*inputs, **ctx.mask)
-            dq, dk, dv = torch.autograd.grad(o, inputs, grad)
-        backward_launches += 1
-        return dq, dk, dv, None, None, None, None, None
 
 
 def _launch(q, k, v, causal, window, softcap, block_q, block_k):
-    global launches
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
@@ -241,5 +222,5 @@ def _launch(q, k, v, causal, window, softcap, block_q, block_k):
         float(softcap or 0.0), nbytes,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", code)
-    launches += 1
+    tracing.count("flash_attention_launches")
     return o

@@ -30,17 +30,17 @@ no multiple of the chunk is padded in the last chunk with steps that leave
 the state as it is, and their outputs are dropped: each call counts them
 under the ``ssd_pad_positions`` counter of :mod:`..tracing`.
 
-``launches`` counts calls that launched a kernel (a route's passes count
-once); ``wide_launches`` counts those of them that took the wide route.
+The ``ssd_scan_launches`` counter of :mod:`..tracing` counts calls that
+launched a kernel (a route's passes count once);
+``ssd_scan_wide_launches`` counts those of them that took the wide route.
 
 The kernel has no backward.  When gradients are asked for (grad mode on
 and an input that requires grad), a CUDA call goes through
-:class:`SsdScan`, whose forward launches the kernel and whose backward
-differentiates the plain version recomputed from the saved inputs, the
-function the reference's models differentiate; ``backward_launches``
-counts those recomputations.  Each call is a ``kernel.ssd_scan`` span of
-:mod:`..tracing` (``groups``, and ``pad``: the padded positions of the last
-chunk), each backward a ``kernel.ssd_scan.backward`` span with CUDA
+:class:`.substrate.KernelFunction`, whose backward differentiates the plain
+version recomputed from the saved inputs
+(``ssd_scan_backward_launches``).  Each call is a ``kernel.ssd_scan`` span
+of :mod:`..tracing` (``groups``, and ``pad``: the padded positions of the
+last chunk), each backward a ``kernel.ssd_scan.backward`` span with CUDA
 events.
 
 :func:`ssd_decode` is the one-token step a decode takes, the second entry
@@ -49,9 +49,9 @@ point of ``csrc/ssd_scan.cu`` (no TPU kernel: the reference's
 writes it once, into ``out`` when given, which may be the state itself
 (the decode hands it the cache's slice, so the step updates the pool in
 place); b and c are read by group, as here.  Its plain version is
-:func:`.ref.ssd_decode_ref`.  ``decode_launches`` and the
-``ssd_decode_launches`` counter of :mod:`..tracing` count its launches
-(eager calls and CUDA-graph captures).
+:func:`.ref.ssd_decode_ref`.  The ``ssd_decode_launches`` counter of
+:mod:`..tracing` counts its launches (eager calls and CUDA-graph
+captures).
 """
 
 from __future__ import annotations
@@ -63,12 +63,7 @@ import torch
 from .. import tracing
 from . import _build, sharded
 from .ref import heads_of, ssd_decode_ref, ssd_ref
-from .substrate import card_smem_limit
-
-launches = 0
-wide_launches = 0
-backward_launches = 0
-decode_launches = 0
+from .substrate import KernelFunction, card_smem_limit
 
 MAX_CHUNK = 256         # bf16 route: csrc/ssd_scan.cu kMaxChunk
 # bf16 route up to 8 * kMaxPT and 16 * kMaxNK; beyond, the wide route
@@ -300,41 +295,13 @@ def ssd_scan(x, log_a, b, c, *, chunk=128):
             raise ValueError(f"ssd_scan: unsupported device {x.device}")
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x, log_a, b, c)):
-            return SsdScan.apply(x, log_a, b, c, chunk)
+            return KernelFunction.apply(
+                "ssd_scan", lambda *t: _launch(*t, chunk),
+                lambda *t: ssd_ref(*t, chunk=chunk), x, log_a, b, c)
         return _launch(x, log_a, b, c, chunk)
-
-
-class SsdScan(torch.autograd.Function):
-    """The kernel forward, the plain version's gradient backward.  b and c
-    may be stride-0 views (head-shared maps): their gradients come back at
-    the view's shape, and autograd sums them through the expand."""
-
-    @staticmethod
-    def forward(ctx, x, log_a, b, c, chunk):
-        ctx.save_for_backward(x, log_a, b, c)
-        ctx.chunk = chunk
-        ctx.set_materialize_grads(False)
-        return _launch(x, log_a, b, c, chunk)
-
-    @staticmethod
-    def backward(ctx, grad_y, grad_final):
-        global backward_launches
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with tracing.span("kernel.ssd_scan.backward",
-                          device=inputs[0].is_cuda), torch.enable_grad():
-            y, final = ssd_ref(*inputs, chunk=ctx.chunk)
-            pairs = [(o, g) for o, g in ((y, grad_y), (final, grad_final))
-                     if g is not None]
-            # c takes no part in the final state
-            grads = torch.autograd.grad([o for o, _ in pairs],
-                                        inputs, [g for _, g in pairs],
-                                        allow_unused=True)
-        backward_launches += 1
-        return (*grads, None)
 
 
 def _launch(x, log_a, b, c, chunk):
-    global launches, wide_launches
     if x.dtype not in _build.DTYPE_CODES or b.dtype != x.dtype or \
             c.dtype != x.dtype or log_a.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"ssd_scan kernel takes float32 or bfloat16 x, b, c "
@@ -372,8 +339,9 @@ def _launch(x, log_a, b, c, chunk):
         H, P, N, H // G, _build.strides(x, log_a, b, c, y), L, nbytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
-    launches += 1
-    wide_launches += is_wide
+    tracing.count("ssd_scan_launches")
+    if is_wide:
+        tracing.count("ssd_scan_wide_launches")
     return y, fin
 
 
@@ -440,7 +408,6 @@ def _aligned(t) -> bool:
 
 
 def _decode_launch(state, x, log_a, b, c, out):
-    global decode_launches
     if x.dtype not in _build.DTYPE_CODES or b.dtype != x.dtype or \
             c.dtype != x.dtype or state.dtype != torch.float32:
         raise ValueError(f"ssd_decode kernel takes a float32 state and "
@@ -479,6 +446,5 @@ def _decode_launch(state, x, log_a, b, c, out):
                        y[:, 0], dims=2),
         decode_tile(B, H, P), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", code)
-    decode_launches += 1
     tracing.count("ssd_decode_launches")
     return y, out

@@ -4,6 +4,9 @@
   plain PyTorch versions, which pad uneven sequence lengths to the next
   block boundary exactly as the TPU kernels do (the CUDA kernels mask the
   ragged edge themselves and need no padded copy).
+* **Kernel forward, plain backward** — :class:`KernelFunction`, the
+  autograd Function through which a kernel with no backward of its own
+  trains.
 * **Block-size autotuner** — :class:`KernelAutotuner` sweeps
   ``(block_q, block_k)`` / ``block_k`` / ``chunk`` candidates per (kernel,
   shape, resource), caches the winner, and rewrites tunable graph nodes in
@@ -34,6 +37,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .._device import replay_seconds, resolve_device, synchronize
 
 
@@ -55,6 +59,39 @@ def pad_axis_to(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
     # F.pad lists (left, right) pairs from the last axis backwards
     pads = [0, 0] * (x.ndim - 1 - axis) + [0, target - size]
     return F.pad(x, pads)
+
+
+class KernelFunction(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient backward:
+    ``apply(name, launch, plain, *inputs)``, where ``launch`` and ``plain``
+    take the tensor inputs alone and give the same outputs.  The backward
+    recomputes ``plain`` from the saved inputs under a
+    ``kernel.<name>.backward`` span (CUDA events on the card),
+    differentiates the outputs that received a gradient (an input that
+    takes no part in them gets None) and counts
+    ``<name>_backward_launches``."""
+
+    @staticmethod
+    def forward(ctx, name, launch, plain, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.name, ctx.plain = name, plain
+        ctx.set_materialize_grads(False)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with tracing.span(f"kernel.{ctx.name}.backward",
+                          device=inputs[0].is_cuda), torch.enable_grad():
+            outs = ctx.plain(*inputs)
+            if not isinstance(outs, tuple):
+                outs = (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                      [g for _, g in pairs],
+                                      allow_unused=True)
+        tracing.count(f"{ctx.name}_backward_launches")
+        return (None, None, None, *got)
 
 
 # ---------------------------------------------------------------------------

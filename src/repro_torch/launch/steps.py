@@ -11,7 +11,8 @@ all build their steps here.
 
 On the card the decode step of a decoder-only model replays itself as
 CUDA graphs cut at each ``decode_attention`` call (:class:`_DecodeGraphs`);
-``graph_captures`` and ``graph_replays`` count its captures and replays.
+the ``decode_graph_captures`` and ``decode_graph_replays`` counters of
+:mod:`..tracing` count its captures and replays.
 
 Spans (:mod:`..tracing`): ``step.prefill``, ``step.decode`` (``graphed``:
 whether the call was a replay) and ``step.train``, inside which
@@ -105,10 +106,6 @@ def make_prefill_step(model, *, rules: AxisRules | None = None, mesh=None):
     return prefill_step
 
 
-graph_captures = 0
-graph_replays = 0
-
-
 class _DecodeGraphs:
     """A decode step replayed as CUDA graphs, for one cache at a time.
 
@@ -147,7 +144,6 @@ class _DecodeGraphs:
 
     def __call__(self, params, cache, token, cache_len):
         """The step's (next_tok, logits, cache), and whether it replayed."""
-        global graph_captures, graph_replays
         key = self._key(params, cache, token)
         if key != self.key:
             self.release()
@@ -159,13 +155,13 @@ class _DecodeGraphs:
                 self.step, (params, cache, self.token, self.lengths),
                 token.device, L, "decode_attention")
             self.key = key
-            graph_captures += 1
+            tracing.count("decode_graph_captures")
             return out, False
         self.token.copy_(token)
         self.lengths.copy_(torch.as_tensor(cache_len, dtype=torch.int32,
                                            device=token.device))
         next_tok, logits, _ = self.chain.replay()
-        graph_replays += 1
+        tracing.count("decode_graph_replays")
         return (next_tok.clone(), logits.clone(), cache), True
 
     def release(self) -> None:

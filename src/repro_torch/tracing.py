@@ -32,10 +32,17 @@ dropped first.  :func:`spans` reads them, :func:`clear` empties it.
 
 Counters are always on: :func:`count` adds to a named total (one dict
 update), :func:`counters` reads the totals.  They count the calls that run
-Python, so a CUDA graph's replays add nothing.  The port's counters:
-``shared_applications`` (the published Zamba2 blocks' applications,
-``models/lm.py``) and ``ssd_pad_positions`` (the identity steps that pad
-an SSD call's last chunk, ``kernels/ssd_scan.py``).
+Python, so a CUDA graph's replays add nothing; a reader takes the
+difference of two readings.  The port's counters: the kernels' launches
+``flash_attention_launches``, ``decode_attention_launches``,
+``ssd_scan_launches`` (``ssd_scan_wide_launches`` of them on the wide
+route) and ``ssd_decode_launches``; their plain backwards
+``flash_attention_backward_launches`` and ``ssd_scan_backward_launches``
+(``kernels/substrate.py``); ``decode_graph_captures`` and
+``decode_graph_replays`` (``launch/steps.py``); ``shared_applications``
+(the published Zamba2 blocks' applications, ``models/lm.py``) and
+``ssd_pad_positions`` (the identity steps that pad an SSD call's last
+chunk, ``kernels/ssd_scan.py``).
 """
 
 from __future__ import annotations
@@ -173,6 +180,7 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] += n
 
 
-def counters() -> dict[str, int]:
-    """The counters' totals since the process started."""
-    return dict(_counts)
+def counters() -> collections.Counter:
+    """The counters' totals since the process started, 0 for a counter
+    never counted."""
+    return collections.Counter(_counts)

@@ -38,6 +38,7 @@ from repro.kernels.substrate import KernelAutotuner as JaxAutotuner
 from repro.runtime.pipeline import PipelineExecutor as JaxExecutor
 
 import repro_torch.core as tcore
+from repro_torch import tracing
 from repro_torch.convert import to_torch
 from repro_torch.core.resources import CLOUD_VM, EDGE_BOX_1
 from repro_torch.kernel_graph import decode_graph
@@ -170,7 +171,7 @@ def test_decode_out_of_another_shape_dtype_or_layout_raises(bad):
 
 
 def test_decode_on_cpu_and_meta_launches_nothing():
-    da_mod.launches = 0
+    before = tracing.counters()
     (_, _, _, _), (tq, tk, tv, tl) = _inputs(7, 2, 40, 4, 2, 16, "float32")
     decode_attention(tq, tk, tv, tl)
     q = torch.empty(16, 32, 128, dtype=torch.bfloat16, device="meta")
@@ -183,7 +184,7 @@ def test_decode_on_cpu_and_meta_launches_nothing():
     x = torch.randn(SHAPE)
     for blk in tcore.fuse_blocks(g):
         x = blk.make_callable()(x)
-    assert da_mod.launches == 0
+    assert (tracing.counters() - before)["decode_attention_launches"] == 0
 
 
 @pytest.mark.parametrize("ctas,n_tiles,sms,per_sm,want", [
@@ -274,7 +275,7 @@ def test_decode_window_plain_version_on_cpu(window):
     k, v = (torch.from_numpy(rng.standard_normal((3, 40, 2, 16))
                              .astype(np.float32)) for _ in range(2))
     lengths = torch.tensor([0, 20, 40], dtype=torch.int32)
-    before = da_mod.launches
+    before = tracing.counters()
     got = da_mod.decode_attention(q, k, v, lengths, window=window)
     k2, v2 = k.clone(), v.clone()
     for row, n in enumerate(lengths.tolist()):
@@ -285,7 +286,8 @@ def test_decode_window_plain_version_on_cpu(window):
     assert torch.equal(da_mod.decode_attention(q, k, v, lengths,
                                                window=4096),
                        da_mod.decode_attention(q, k, v, lengths))
-    assert (got[0] == 0).all() and da_mod.launches == before
+    assert (got[0] == 0).all()
+    assert (tracing.counters() - before)["decode_attention_launches"] == 0
 
 
 def test_decode_node_draws_once_and_converts_once():
@@ -443,7 +445,7 @@ def test_decode_analytic_db_is_identical_and_loads_in_jax(graphs):
 
 def test_decode_timed_db_loads_in_jax_with_same_query(graphs):
     _, tg = graphs
-    da_mod.launches = 0
+    before = tracing.counters()
     tres = _resources(tcore, EDGE_BOX_1, CLOUD_VM)
     tuner = KernelAutotuner(candidates={"decode_attention":
                                         [{"block_k": 128}]},
@@ -456,7 +458,7 @@ def test_decode_timed_db_loads_in_jax_with_same_query(graphs):
     tuned = [r.tuned_params for r in loaded.records["cloud"]]
     assert tuned == [r.tuned_params for r in tdb.records["cloud"]]
     assert {"attn0", "attn1"} <= {k for t in tuned for k in t}
-    assert da_mod.launches == 0
+    assert (tracing.counters() - before)["decode_attention_launches"] == 0
 
 
 def _hook(fn, args):

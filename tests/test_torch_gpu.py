@@ -41,6 +41,10 @@ TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+LAUNCHES = ("flash_attention_launches", "ssd_scan_launches",
+            "decode_attention_launches")
+TRAINED = ("flash_attention_launches", "ssd_scan_launches",
+           "flash_attention_backward_launches", "ssd_scan_backward_launches")
 
 
 @pytest.fixture
@@ -50,6 +54,16 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _counts(*names: str) -> tuple[int, ...]:
+    """The ``tracing`` counters' totals: tests take differences."""
+    counts = tracing.counters()
+    return tuple(counts[n] for n in names)
+
+
+def _counted(name: str) -> int:
+    return tracing.counters()[name]
 
 
 def _randn(rng, shape, dtype, device):
@@ -104,11 +118,11 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hk, hd,
     q = _randn(rng, (B, Sq, H, hd), dtype, cuda)
     k = _randn(rng, (B, Sk, Hk, hd), dtype, cuda)
     v = _randn(rng, (B, Sk, Hk, hd), dtype, cuda)
-    before = fa_mod.launches
+    before = _counted("flash_attention_launches")
     got = fa_mod.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
-    assert fa_mod.launches == before + 1
+    assert _counted("flash_attention_launches") == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_ref(q.float(), k.float(), v.float(),
                                causal=causal, window=window, softcap=softcap)
@@ -133,16 +147,16 @@ def test_flash_attention_fully_masked_rows_are_zero(cuda, dtype):
                                       (80, torch.float32)])
 def test_flash_attention_refuses_oversized_tiles(cuda, hd, dtype):
     x = torch.zeros((1, 512, 2, hd), device=cuda, dtype=dtype)
-    before = fa_mod.launches
+    before = _counted("flash_attention_launches")
     with pytest.raises(ValueError, match="shared memory"):
         fa_mod.flash_attention(x, x, x, block_q=256, block_k=256)
-    assert fa_mod.launches == before
+    assert _counted("flash_attention_launches") == before
 
 
 def test_flash_attention_bf16_refuses_other_head_dims(cuda):
     """The tensor-core route takes head_dim % 16 == 0 up to 256; it never
     hands another shape to the plain version or the fp32 kernel."""
-    before = fa_mod.launches
+    before = _counted("flash_attention_launches")
     for hd in (72, 272):
         x = torch.zeros((1, 64, 2, hd), device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
@@ -150,7 +164,7 @@ def test_flash_attention_bf16_refuses_other_head_dims(cuda):
     x = torch.zeros((1, 640, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="block_q"):
         fa_mod.flash_attention(x, x, x, block_q=512)
-    assert fa_mod.launches == before
+    assert _counted("flash_attention_launches") == before
     y = torch.zeros((1, 64, 2, 72), device=cuda)      # fp32 takes any width
     assert (fa_mod.flash_attention(y, y, y) == 0).all()
 
@@ -206,10 +220,10 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk, dtype,
         _randn(rng, (B, S, H), torch.float32, cuda)).to(la_dtype)
     b = _randn(rng, (B, S, H, N), dtype, cuda)
     c = _randn(rng, (B, S, H, N), dtype, cuda)
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_mod.launches == before + 1
+    assert _counted("ssd_scan_launches") == before + 1
     assert y.dtype == dtype and fin.dtype == torch.float32
     y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
                              chunk=chunk)
@@ -244,10 +258,10 @@ def test_ssd_scan_bf16_wide_route_matches_plain(cuda, B, S, H, P, N, chunk,
     b = (_randn(rng, (B, S, H, N), torch.float32, cuda) / N ** 0.5).to(
         torch.bfloat16)
     c = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_mod.launches == before + 1
+    assert _counted("ssd_scan_launches") == before + 1
     y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
                              chunk=chunk)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
@@ -273,10 +287,10 @@ def test_ssd_scan_bf16_wide_route_takes_strided_and_broadcast_b_c(cuda):
         B, S, H, P)
     for c in (c_head, c_batch):
         assert 0 in c.stride()
-        before = ssd_mod.wide_launches
+        before = _counted("ssd_scan_wide_launches")
         y, fin = ssd_mod.ssd_scan(x, la, b, c, chunk=128)
         torch.cuda.synchronize()
-        assert ssd_mod.wide_launches == before + 1
+        assert _counted("ssd_scan_wide_launches") == before + 1
         y_ref, fin_ref = ssd_ref(x.float(), la, b.float(), c.float(),
                                  chunk=128)
         _close(y, y_ref, SSD_TOL[torch.bfloat16])
@@ -315,10 +329,10 @@ def test_ssd_scan_bf16_wide_route_holds_unit_scale_b(cuda, B, S, H, P, N,
         _randn(rng, (B, S, H), torch.float32, cuda)).to(la_dtype)
     b = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
     c = _randn(rng, (B, S, H, N), torch.bfloat16, cuda)
-    before = ssd_mod.wide_launches
+    before = _counted("ssd_scan_wide_launches")
     y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=128)
     torch.cuda.synchronize()
-    assert ssd_mod.wide_launches == before + 1
+    assert _counted("ssd_scan_wide_launches") == before + 1
     y_ref, fin_ref = ssd_ref(x.float(), log_a.float(), b.float(), c.float(),
                              chunk=128)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
@@ -347,12 +361,12 @@ def test_ssd_scan_grouped_b_c_match_the_per_head_maps(cuda, B, S, H, P, N,
     xbc = _randn(rng, (B, S, 2 * G * N + 8), dtype, cuda)
     b = xbc[..., :G * N].unflatten(2, (G, N))
     c = xbc[..., G * N:2 * G * N].unflatten(2, (G, N))
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     y, fin = ssd_mod.ssd_scan(x, log_a, b, c, chunk=chunk)
     per_head = [t.repeat_interleave(H // G, dim=2) for t in (b, c)]
     y_h, fin_h = ssd_mod.ssd_scan(x, log_a, *per_head, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_mod.launches == before + 2
+    assert _counted("ssd_scan_launches") == before + 2
     assert torch.equal(y, y_h) and torch.equal(fin, fin_h)
     y_ref, fin_ref = ssd_ref(x.float(), log_a, b.float(), c.float(),
                              chunk=chunk)
@@ -397,10 +411,10 @@ def test_ssd_scan_bf16_every_chunk_at_zamba2_widths(cuda, chunk):
     x = torch.tanh(_randn(rng, (1, 1000, 4, 80), torch.bfloat16, cuda))
     la = -torch.nn.functional.softplus(x.mean(dim=-1))
     bc = x[..., :64]
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     y, fin = ssd_mod.ssd_scan(x, la, bc, bc, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_mod.launches == before + 1
+    assert _counted("ssd_scan_launches") == before + 1
     y_ref, fin_ref = ssd_ref(x.float(), la.float(), bc.float(), bc.float(),
                              chunk=chunk)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
@@ -411,7 +425,7 @@ def test_ssd_scan_bf16_refuses_what_it_does_not_take(cuda):
     """The bf16 passes take chunk <= 256 with P <= 128 and N <= 64, or
     chunk <= 128 with P and N up to 384; they never hand another shape to
     the plain version or the fp32 kernel."""
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     for P, N, chunk in ((392, 16, 64), (64, 392, 64), (64, 16, 512),
                         (136, 16, 256), (384, 384, 256)):
         x = torch.zeros((1, 1024, 1, P), device=cuda, dtype=torch.bfloat16)
@@ -419,7 +433,7 @@ def test_ssd_scan_bf16_refuses_what_it_does_not_take(cuda):
         la = torch.zeros((1, 1024, 1), device=cuda)
         with pytest.raises(ValueError, match="bf16 kernel"):
             ssd_mod.ssd_scan(x, la, b, b, chunk=chunk)
-    assert ssd_mod.launches == before
+    assert _counted("ssd_scan_launches") == before
 
 
 def test_ssd_scan_bf16_kernels_use_tensor_cores_without_spills(cuda):
@@ -456,27 +470,28 @@ def test_ssd_scan_mlstm_widths_bf16_and_fp32_refusal(cuda):
     f, i = (_randn(rng, shape[:3], torch.float32, cuda) for _ in range(2))
     x = v * torch.sigmoid(i)[..., None].to(torch.bfloat16)
     la = torch.nn.functional.logsigmoid(f)
-    before, wide_before = ssd_mod.launches, ssd_mod.wide_launches
+    before, wide_before = _counts("ssd_scan_launches",
+                                  "ssd_scan_wide_launches")
     y, fin = ssd_mod.ssd_scan(x, la, k, q, chunk=128)
     torch.cuda.synchronize()
-    assert ssd_mod.launches == before + 1
-    assert ssd_mod.wide_launches == wide_before + 1
+    assert _counted("ssd_scan_launches") == before + 1
+    assert _counted("ssd_scan_wide_launches") == wide_before + 1
     y_ref, fin_ref = ssd_ref(x.float(), la, k.float(), q.float(), chunk=128)
     _close(y, y_ref, SSD_TOL[torch.bfloat16])
     _close(fin, fin_ref, SSD_TOL[torch.float32])
     with pytest.raises(ValueError, match="fp32 kernel.*shared memory"):
         ssd_mod.ssd_scan(x.float(), la, k.float(), q.float(), chunk=128)
-    assert ssd_mod.launches == before + 1
+    assert _counted("ssd_scan_launches") == before + 1
 
 
 def test_ssd_scan_refuses_oversized_chunk(cuda):
     x = torch.zeros((1, 512, 2, 80), device=cuda)
     b = torch.zeros((1, 512, 2, 64), device=cuda)
     la = torch.zeros((1, 512, 2), device=cuda)
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     with pytest.raises(ValueError, match="shared memory"):
         ssd_mod.ssd_scan(x, la, b, b, chunk=256)
-    assert ssd_mod.launches == before
+    assert _counted("ssd_scan_launches") == before
 
 
 # the one-token SSD decode at each path's widths, B, H, G, N, P:
@@ -519,14 +534,13 @@ def test_ssd_decode_kernel_matches_plain(cuda, arch, out):
     buffer, or into a new tensor (the state left as it was); and captured
     in a CUDA graph in place, as the graphed decode step runs it, two
     replays equal to two eager calls bit for bit.  Each call counts a
-    launch (a capture too, a replay not), in ``decode_launches`` and in the
-    ``ssd_decode_launches`` counter."""
+    launch (a capture too, a replay not) in the ``ssd_decode_launches``
+    counter."""
     from repro_torch._device import capture
     state, x, log_a, b, c = _ssd_decode_case(arch, cuda)
     want_y, want_st = ssd_decode_ref(state, x, log_a, b, c)
     before = state.clone()
-    launched = ssd_mod.decode_launches
-    counted = tracing.counters().get("ssd_decode_launches", 0)
+    launched = _counted("ssd_decode_launches")
     if out == "graph":
         eager = state.clone()
         eager_y = [ssd_mod.ssd_decode(eager, x, log_a, b, c, out=eager)[0]
@@ -558,15 +572,14 @@ def test_ssd_decode_kernel_matches_plain(cuda, arch, out):
         torch.testing.assert_close(st, want_st, **SSD_DECODE_STATE_TOL)
         calls = 1
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
-    assert ssd_mod.decode_launches - launched == calls
-    assert tracing.counters()["ssd_decode_launches"] - counted == calls
+    assert _counted("ssd_decode_launches") - launched == calls
 
 
 def test_ssd_decode_refuses_what_it_does_not_take(cuda):
     """P of no multiple of 4, an ``out`` the kernel cannot write as it is,
     a bf16 state: each raises, and nothing launches."""
     state, x, log_a, b, c = _ssd_decode_case("zamba2-2.7b", cuda)
-    launched = ssd_mod.decode_launches
+    launched = _counted("ssd_decode_launches")
     with pytest.raises(ValueError, match="multiple of 4"):
         ssd_mod.ssd_decode(state[..., :62], x[..., :62], log_a, b, c)
     with pytest.raises(ValueError, match="contiguous"):
@@ -574,7 +587,7 @@ def test_ssd_decode_refuses_what_it_does_not_take(cuda):
                            out=torch.empty_like(state).transpose(2, 3))
     with pytest.raises(ValueError, match="float32 state"):
         ssd_mod.ssd_decode(state.bfloat16(), x, log_a, b, c)
-    assert ssd_mod.decode_launches == launched
+    assert _counted("ssd_decode_launches") == launched
 
 
 def _decode_inputs(seed, B, Smax, H, Hk, hd, dtype, device, lengths=None):
@@ -625,11 +638,11 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Smax, H, Hk, hd,
     block_ks = _fitting_block_ks(q, k, cuda)
     assert block_ks
     for bk in block_ks:
-        before = da_mod.launches
+        before = _counted("decode_attention_launches")
         got = da_mod.decode_attention(q, k, v, lengths, softcap=softcap,
                                       block_k=bk)
         torch.cuda.synchronize()
-        assert da_mod.launches == before + 1
+        assert _counted("decode_attention_launches") == before + 1
         assert got.dtype == dtype and got.shape == q.shape
         _close(got, want, TOL[dtype])
         assert (got[lengths == 0] == 0).all()
@@ -641,10 +654,10 @@ def test_decode_attention_whisper_cross_cache(cuda, dtype):
     whole 1500-entry cross cache (16 heads of 64, width 8)."""
     q, k, v, _ = _decode_inputs(15, 8, 1500, 16, 16, 64, dtype, cuda)
     lengths = torch.full((8,), 1500, dtype=torch.int32, device=cuda)
-    before = da_mod.launches
+    before = _counted("decode_attention_launches")
     got = da_mod.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
-    assert da_mod.launches == before + 1
+    assert _counted("decode_attention_launches") == before + 1
     _close(got, decode_attention_ref(q.float(), k.float(), v.float(),
                                      lengths), TOL[dtype])
 
@@ -697,10 +710,10 @@ def test_decode_attention_window_matches_plain(cuda, B, Smax, H, Hk, hd,
         k2[row, :max(n - window, 0)] = float("nan")
         v2[row, :max(n - window, 0)] = float("nan")
     for bk in _fitting_block_ks(q, k, cuda):
-        before = da_mod.launches
+        before = _counted("decode_attention_launches")
         got = da_mod.decode_attention(q, k, v, lengths, softcap=softcap,
                                       window=window, block_k=bk)
-        assert da_mod.launches == before + 1
+        assert _counted("decode_attention_launches") == before + 1
         _close(got, want, TOL[dtype])
         assert (got[lengths == 0] == 0).all()
         got2 = da_mod.decode_attention(q, k2, v2, lengths, softcap=softcap,
@@ -724,12 +737,12 @@ def test_decode_attention_refuses_oversized_tiles(cuda):
     q = torch.zeros((2, 32, 128), device=cuda, dtype=torch.bfloat16)
     k = torch.zeros((2, 4096, 8, 128), device=cuda, dtype=torch.bfloat16)
     lengths = torch.full((2,), 4096, dtype=torch.int32, device=cuda)
-    before = da_mod.launches
+    before = _counted("decode_attention_launches")
     with pytest.raises(ValueError, match="shared memory"):
         da_mod.decode_attention(q, k, k, lengths, block_k=512)
     with pytest.raises(ValueError, match="one dtype"):
         da_mod.decode_attention(q, k.float(), k, lengths)
-    assert da_mod.launches == before
+    assert _counted("decode_attention_launches") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -798,12 +811,12 @@ def test_decode_attention_lse_and_starts_match_plain(cuda, dtype, B, Smax, H,
         want, want_lse = decode_attention_ref(
             q.float(), k.float(), v.float(), lengths, softcap=softcap,
             window=window, starts=starts, return_lse=True)
-        before = da_mod.launches
+        before = _counted("decode_attention_launches")
         got, lse = da_mod.decode_attention(q, k, v, lengths, softcap=softcap,
                                            window=window, starts=starts,
                                            return_lse=True)
         torch.cuda.synchronize()
-        assert da_mod.launches == before + 1
+        assert _counted("decode_attention_launches") == before + 1
         assert lse.dtype == torch.float32 and lse.shape == (B, H)
         _close(got, want, TOL[dtype])
         empty = torch.isneginf(want_lse)
@@ -844,7 +857,7 @@ def test_split_cache_recombined_equals_the_unsplit_kernel(cuda, dtype, R,
                                       lengths=lengths)
     Sl = Smax // R
     parts, lses = [], []
-    before = da_mod.launches
+    before = _counted("decode_attention_launches")
     for r in range(R):
         off = r * Sl
         end, start = slice_bounds(lengths, off, Sl, window)
@@ -853,7 +866,7 @@ def test_split_cache_recombined_equals_the_unsplit_kernel(cuda, dtype, R,
             return_lse=True)
         parts.append(o)
         lses.append(lse)
-    assert da_mod.launches == before + R
+    assert _counted("decode_attention_launches") == before + R
     got = combine_partials(torch.stack(parts), torch.stack(lses))
     whole = da_mod.decode_attention(q, k, v, lengths, window=window)
     want = decode_attention_ref(q.float(), k.float(), v.float(), lengths,
@@ -870,10 +883,10 @@ def test_decode_attention_bf16_refuses_other_head_dims(cuda):
     q = torch.zeros((2, 4, 96), device=cuda, dtype=torch.bfloat16)
     k = torch.zeros((2, 64, 2, 96), device=cuda, dtype=torch.bfloat16)
     lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
-    before = da_mod.launches
+    before = _counted("decode_attention_launches")
     with pytest.raises(ValueError, match="head_dim"):
         da_mod.decode_attention(q, k, k, lengths)
-    assert da_mod.launches == before
+    assert _counted("decode_attention_launches") == before
 
 
 def test_decode_attention_bf16_kernel_uses_tensor_cores_without_spills(cuda):
@@ -994,11 +1007,11 @@ def test_zoo_block_launches_no_kernel_and_copies_no_layout(cuda):
     x = torch.randn(blk.in_spec.shape, device=cuda)
     fn(x)
     torch.cuda.synchronize()
-    before = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    before = _counts(*LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn(x)
         torch.cuda.synchronize()
-    assert (fa_mod.launches, ssd_mod.launches, da_mod.launches) == before
+    assert _counts(*LAUNCHES) == before
     names = {e.name for e in prof.events()}
     assert not names & {"aten::contiguous", "aten::clone", "aten::copy_"}, \
         sorted(names)
@@ -1041,14 +1054,14 @@ def test_captured_block_replays_like_an_eager_call(cuda, kind):
     x = _randn(np.random.default_rng(2), blk.in_spec.shape,
                blk.in_spec.dtype, cuda)
     want = fn(x)
-    counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    counts = _counts(*LAUNCHES)
     graph, got = capture(fn, (x,), cuda)
-    after = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    after = _counts(*LAUNCHES)
     assert sum(after) - sum(counts) == (0 if kind == "zoo" else 1)
     graph.replay()
     graph.replay()
     torch.cuda.synchronize()
-    assert (fa_mod.launches, ssd_mod.launches, da_mod.launches) == after
+    assert _counts(*LAUNCHES) == after
     assert torch.equal(got, want)
     graph.reset()
 
@@ -1200,7 +1213,7 @@ def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
     dparams = L.tree_map(lambda a: a.to(cuda), params)
     rng = np.random.default_rng(12)
     tokens = torch.from_numpy(rng.integers(0, 128, (2, 32), dtype=np.int32))
-    counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+    counts = _counts(*LAUNCHES)
     tol = dict(rtol=1e-3, atol=1e-3)
     want, _ = cpu.forward(params, tokens)
     got, _ = card.forward(dparams, tokens.to(cuda))
@@ -1220,8 +1233,7 @@ def test_lm_steps_on_the_card_match_the_cpu(cuda, arch):
         assert _rel(got, want) <= 1e-3
         clen += 1
     launched = {k for k, before, after in zip(
-        ("flash", "ssd", "decode"), counts,
-        (fa_mod.launches, ssd_mod.launches, da_mod.launches))
+        ("flash", "ssd", "decode"), counts, _counts(*LAUNCHES))
         if after > before}
     assert launched == LM_KERNELS[arch]
 
@@ -1234,7 +1246,6 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
     on the bucketed path (gemma2, whose local layers' window of 16 the
     sequences outgrow; qwen2-moe; granite at width 4) and the exact one
     (zamba2, xlstm).  On the card the decode steps replay CUDA graphs."""
-    from repro_torch.launch import steps
     from repro_torch.models import layers as L
     from repro_torch.serving import Request, ServingEngine
     cpu = _small_lm(arch, "cpu")
@@ -1250,11 +1261,11 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda, arch):
         for i, prompt in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=12))
         eng.warmup()
-        replays = steps.graph_replays
+        replays = _counted("decode_graph_replays")
         tokens.append([r.tokens for r in sorted(eng.run(),
                                                 key=lambda r: r.rid)])
     assert tokens[0] == tokens[1]
-    assert steps.graph_replays > replays
+    assert _counted("decode_graph_replays") > replays
 
 
 def _zero_slot(cache, slot):
@@ -1293,7 +1304,7 @@ def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
     decode = steps.make_decode_step(model)
     lengths = np.array([16, 9, 3, 12], np.int32)
     tok = rng.integers(0, 128, (B, 1)).astype(np.int32)
-    captures = steps.graph_captures
+    captures = _counted("decode_graph_captures")
     real, seen = L.decode_attention, []
 
     def counted(*a, **kw):
@@ -1312,33 +1323,37 @@ def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
                 _zero_slot(eager, slot)
             tt = torch.from_numpy(tok).to(cuda)
             ll = torch.from_numpy(lengths).to(cuda)
-            launched, replays = da_mod.launches, steps.graph_replays
-            ssd_launched = ssd_mod.decode_launches
+            launched, replays = _counts("decode_attention_launches",
+                                        "decode_graph_replays")
+            ssd_launched = _counted("ssd_decode_launches")
             L.decode_attention, seen[:] = counted, []
             try:
                 got_tok, got_logits, out = decode(params, cache, tt, ll)
             finally:
                 L.decode_attention = real
-            graphed = da_mod.launches - launched
-            ssd_graphed = ssd_mod.decode_launches - ssd_launched
+            graphed = _counted("decode_attention_launches") - launched
+            ssd_graphed = _counted("ssd_decode_launches") - ssd_launched
             want_logits, eager = model.decode_step(params, tt, eager, ll)
             # the SSD decode launches once a Mamba-2 layer in the eager step
             # and in the capture (the first tick runs both), never in a
             # replay
-            ssd_eager = ssd_mod.decode_launches - ssd_launched - ssd_graphed
+            ssd_eager = _counted("ssd_decode_launches") - ssd_launched - \
+                ssd_graphed
             assert ssd_graphed == (2 * ssd_eager if t == 0 else 0)
             assert (ssd_eager > 0) == arch.startswith("zamba2")
             want_tok = torch.argmax(want_logits[:, -1], dim=-1) \
                 .to(torch.int32)[:, None]
-            assert graphed == da_mod.launches - launched - graphed > 0
+            assert graphed == _counted("decode_attention_launches") - \
+                launched - graphed > 0
             assert seen == [t > 0] * graphed
-            assert steps.graph_replays - replays == (1 if t else 0)
+            assert _counted("decode_graph_replays") - replays == \
+                (1 if t else 0)
             assert out is cache
             assert torch.equal(got_tok, want_tok), t
             assert _rel(got_logits, want_logits.cpu()) <= 3e-2, t
             tok = want_tok.cpu().numpy()
             lengths += 1
-        assert steps.graph_captures == captures + 1
+        assert _counted("decode_graph_captures") == captures + 1
         other = L.tree_map(torch.clone, cache)
         tracing.start()
         try:
@@ -1346,7 +1361,7 @@ def test_graphed_decode_step_gives_the_eager_steps_tokens(cuda, arch, dtype):
                 decode(params, other, tt, ll)
         finally:
             tracing.stop()
-    assert steps.graph_captures == captures + 2
+    assert _counted("decode_graph_captures") == captures + 2
     recs = [r for r in tracing.spans() if r["name"] == "step.decode"]
     tracing.clear()
     assert [r["attrs"] for r in recs[-2:]] == [{"graphed": False},
@@ -1369,7 +1384,7 @@ def test_lm_at_head_dim_256_fits_the_card(cuda):
     tokens = torch.from_numpy(np.random.default_rng(14).integers(
         0, 256, (2, 64), dtype=np.int32))
 
-    counts = (fa_mod.launches, da_mod.launches)
+    counts = _counts("flash_attention_launches", "decode_attention_launches")
     assert _rel(card.forward(dparams, tokens.to(cuda))[0],
                 cpu.forward(params, tokens)[0]) <= 3e-2
     caches = [m.init_cache(batch=2, max_len=96) for m in (cpu, card)]
@@ -1381,7 +1396,9 @@ def test_lm_at_head_dim_256_fits_the_card(cuda):
     want, _ = cpu.decode_step(params, tok, caches[0], clen)
     got, _ = card.decode_step(dparams, tok.to(cuda), caches[1], clen.to(cuda))
     assert _rel(got, want) <= 3e-2
-    assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]
+    assert all(a > b for a, b in zip(
+        _counts("flash_attention_launches", "decode_attention_launches"),
+        counts))
 
 
 def test_xlstm_at_its_full_head_width_on_the_card(cuda):
@@ -1397,7 +1414,7 @@ def test_xlstm_at_its_full_head_width_on_the_card(cuda):
     dparams = L.tree_map(lambda a: a.to(cuda), params)
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, 512, (2, 256), dtype=np.int32))
-    before = ssd_mod.launches
+    before = _counted("ssd_scan_launches")
     assert _rel(card.forward(dparams, tokens.to(cuda))[0],
                 cpu.forward(params, tokens)[0]) <= 3e-2
     caches = [m.init_cache(batch=2, max_len=300) for m in (cpu, card)]
@@ -1409,7 +1426,7 @@ def test_xlstm_at_its_full_head_width_on_the_card(cuda):
     want, _ = cpu.decode_step(params, tok, caches[0], clen)
     got, _ = card.decode_step(dparams, tok.to(cuda), caches[1], clen.to(cuda))
     assert _rel(got, want) <= 3e-2
-    assert ssd_mod.launches == before + 2        # forward and prefill
+    assert _counted("ssd_scan_launches") == before + 2  # forward, prefill
 
 
 def test_encdec_on_the_card_matches_the_cpu(cuda):
@@ -1430,7 +1447,7 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
         5, vision.frame_embed_spec(2, 300, cfg.d_model), device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(17).integers(
         0, 512, (2, 8), dtype=np.int32))
-    counts = (fa_mod.launches, da_mod.launches)
+    counts = _counts("flash_attention_launches", "decode_attention_launches")
     assert _rel(card.encode(dparams, frames.to(cuda)),
                 cpu.encode(params, frames)) <= 1e-3
     caches = [m.init_cache(batch=2, max_len=24) for m in (cpu, card)]
@@ -1446,7 +1463,9 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
                                   clen.to(cuda))
         assert _rel(got, want) <= 1e-3
         clen += 1
-    assert fa_mod.launches > counts[0] and da_mod.launches > counts[1]
+    assert all(a > b for a, b in zip(
+        _counts("flash_attention_launches", "decode_attention_launches"),
+        counts))
 
 
 # -- the analysis passes on the card ---------------------------------------------
@@ -1493,9 +1512,10 @@ def test_fx_lint_captures_kernel_blocks_on_the_card(cuda):
     g = linear_graph("demo", TensorSpec((1, 256, 4, 80), torch.bfloat16),
                      [flash_attention_node("attn", device=cuda),
                       ssd_scan_node("ssd", state_dim=64, device=cuda)])
-    launched = fa_mod.launches, ssd_mod.launches
+    launched = _counts("flash_attention_launches", "ssd_scan_launches")
     assert lint_blocks(fuse_blocks(g), device=cuda) == []
-    assert fa_mod.launches > launched[0] and ssd_mod.launches > launched[1]
+    assert all(a > b for a, b in zip(
+        _counts("flash_attention_launches", "ssd_scan_launches"), launched))
 
     def host_read(x):
         if x.is_meta:
@@ -1525,12 +1545,14 @@ def test_flash_gradients_through_the_kernel(cuda, dtype, mask):
     rng = np.random.default_rng(40)
     q, k, v = (_randn(rng, s, dtype, cuda).requires_grad_()
                for s in ((2, 160, 4, 64), (2, 160, 2, 64), (2, 160, 2, 64)))
-    before = (fa_mod.launches, fa_mod.backward_launches)
+    before = _counts("flash_attention_launches",
+                     "flash_attention_backward_launches")
     o = fa_mod.flash_attention(q, k, v, **mask)
     assert o.grad_fn is not None
     go = _randn(rng, o.shape, dtype, cuda)
     got = torch.autograd.grad(o, (q, k, v), go)
-    assert (fa_mod.launches, fa_mod.backward_launches) == \
+    assert _counts("flash_attention_launches",
+                   "flash_attention_backward_launches") == \
         (before[0] + 1, before[1] + 1)
     _close(o, flash_attention_ref(q, k, v, **mask), TOL[dtype])
     want = torch.autograd.grad(flash_attention_ref(q, k, v, **mask),
@@ -1562,10 +1584,10 @@ def test_ssd_gradients_through_the_kernel(cuda, dtype, S, H, P, N, chunk):
                       chunk=chunk)
         return y.float().square().mean() + final.square().mean(), y
 
-    before = (ssd_mod.launches, ssd_mod.backward_launches)
+    before = _counts("ssd_scan_launches", "ssd_scan_backward_launches")
     out, y = loss(ssd_mod.ssd_scan)
     got = torch.autograd.grad(out, inputs)
-    assert (ssd_mod.launches, ssd_mod.backward_launches) == \
+    assert _counts("ssd_scan_launches", "ssd_scan_backward_launches") == \
         (before[0] + 1, before[1] + 1)
     ref_out, y_ref = loss(ssd_ref)
     _close(y, y_ref, SSD_TOL[dtype])
@@ -1642,13 +1664,13 @@ def test_decode_attention_refuses_input_that_requires_grad(cuda):
     q = _randn(rng, (2, 4, 64), torch.float32, cuda).requires_grad_()
     k = v = _randn(rng, (2, 32, 2, 64), torch.float32, cuda)
     lengths = torch.tensor([5, 32], dtype=torch.int32, device=cuda)
-    before = da_mod.launches
+    before = _counted("decode_attention_launches")
     with pytest.raises(ValueError, match="no backward"):
         da_mod.decode_attention(q, k, v, lengths)
-    assert da_mod.launches == before
+    assert _counted("decode_attention_launches") == before
     with torch.no_grad():
         da_mod.decode_attention(q, k, v, lengths)
-    assert da_mod.launches == before + 1
+    assert _counted("decode_attention_launches") == before + 1
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m",
@@ -1690,7 +1712,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         batch["patch_embeds"] = _randn(rng, (2, c.n_img_tokens, c.d_model),
                                        torch.float32, "cpu")
     cfg = AdamWConfig(lr=1e-2)
-    counts = (fa_mod.backward_launches, ssd_mod.backward_launches)
+    counts = _counts("flash_attention_backward_launches",
+                     "ssd_scan_backward_launches")
     _, _, want = make_train_step(cpu, cfg)(params, init_state(params), batch)
     _, _, got = make_train_step(card, cfg)(
         dparams, init_state(dparams), {k: v.to(cuda) for k, v in
@@ -1706,9 +1729,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
             got["aux"].item() - want["aux"].item()) <= \
             1e-3 * abs(want["aux"].item())
     if arch in ("zamba2-2.7b", "xlstm-125m"):
-        assert ssd_mod.backward_launches > counts[1]
+        assert _counted("ssd_scan_backward_launches") > counts[1]
     if arch != "xlstm-125m":
-        assert fa_mod.backward_launches > counts[0]
+        assert _counted("flash_attention_backward_launches") > counts[0]
 
 
 def test_checkpoint_saved_on_the_card_restores_on_the_cpu(cuda, tmp_path):
@@ -1765,15 +1788,13 @@ def test_sharded_train_step_on_a_1x1_mesh_equals_the_unsharded(cuda):
             args = shard_args(model.cfg, shape, mesh, rules, args)
             kw = dict(rules=rules, mesh=mesh)
         step = make_train_step(model, AdamWConfig(lr=1e-2), **kw)
-        counts = (fa_mod.launches, ssd_mod.launches,
-                  fa_mod.backward_launches, ssd_mod.backward_launches)
+        counts = _counts(*TRAINED)
         losses = []
         for _ in range(2):
             args["params"], args["opt_state"], m = step(
                 args["params"], args["opt_state"], args["batch"])
             losses.append(m["loss"])
-        after = (fa_mod.launches, ssd_mod.launches,
-                 fa_mod.backward_launches, ssd_mod.backward_launches)
+        after = _counts(*TRAINED)
         assert all(a > b for a, b in zip(after, counts))
         runs.append((losses, _local_leaves(args["params"])))
     (l0, p0), (l1, p1) = runs
@@ -1802,7 +1823,7 @@ def test_sharded_serving_steps_on_a_1x1_mesh_equal_the_unsharded(cuda, arch):
     for sharded in (False, True):
         params = model.init(seed=4, dtype=torch.float32)
         cache = model.init_cache(B, max_len)
-        counts = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+        counts = _counts(*LAUNCHES)
         if sharded:
             pr, dr = (rules_for(s, multi_pod=False) for s in (pshape, dshape))
             a = shard_args(model.cfg, pshape, mesh, pr,
@@ -1827,7 +1848,7 @@ def test_sharded_serving_steps_on_a_1x1_mesh_equal_the_unsharded(cuda, arch):
                 tok, logits, cache = decode(params, cache, args["token"],
                                             args["cache_len"])
                 outs += [logits, tok]
-        after = (fa_mod.launches, ssd_mod.launches, da_mod.launches)
+        after = _counts(*LAUNCHES)
         launched = {k for k, b, a in zip(("flash", "ssd", "decode"), counts,
                                          after) if a > b}
         assert launched == LM_KERNELS[arch]

@@ -225,6 +225,11 @@ def test_replay_calls_the_name_bound_now_between_the_graphs(stub_cuda):
     assert chain.graphs == [] and chain.cuts == [] and chain.out is None
 
 
+def _graph_counts() -> tuple[int, int]:
+    counts = tracing.counters()
+    return counts["decode_graph_captures"], counts["decode_graph_replays"]
+
+
 def test_step_captures_once_per_cache_and_replays_after(stub_cuda):
     """``_DecodeGraphs``: the first call on a cache is the eager step (its
     outputs returned) and a capture; later calls on it replay, with the
@@ -234,11 +239,10 @@ def test_step_captures_once_per_cache_and_replays_after(stub_cuda):
     model, params = _model("granite-8b")
     cache, token, lengths = _inputs(model)
     graphs = steps._DecodeGraphs(_step_body(model))
-    c0, r0 = steps.graph_captures, steps.graph_replays
+    c0, r0 = _graph_counts()
     (tok, logits, out_cache), replayed = graphs(params, cache, token,
                                                 lengths)
-    assert not replayed and (steps.graph_captures, steps.graph_replays) == \
-        (c0 + 1, r0)
+    assert not replayed and _graph_counts() == (c0 + 1, r0)
     assert out_cache is cache
     for i in range(3):
         new_tok, new_len = token + i + 1, lengths + i + 1
@@ -252,7 +256,7 @@ def test_step_captures_once_per_cache_and_replays_after(stub_cuda):
         # past the first cut the "captured" body read unset buffers
         torch.testing.assert_close(logits, graphs.chain.out[1], rtol=0,
                                    atol=0, equal_nan=True)
-    assert (steps.graph_captures, steps.graph_replays) == (c0 + 1, r0 + 3)
+    assert _graph_counts() == (c0 + 1, r0 + 3)
     # a scalar length is broadcast into the static buffer
     graphs(params, cache, token, 7)
     assert graphs.lengths.tolist() == [7] * B
@@ -260,7 +264,7 @@ def test_step_captures_once_per_cache_and_replays_after(stub_cuda):
     other, _, _ = _inputs(model, seed=1)
     _, replayed = graphs(params, other, token, lengths)
     assert not replayed and graphs.chain is not first
-    assert steps.graph_captures == c0 + 2 and first.graphs == []
+    assert _graph_counts()[0] == c0 + 2 and first.graphs == []
     assert any(e[0] == "reset" for e in stub_cuda)
     _, replayed = graphs(params, other, token, lengths)
     assert replayed
@@ -273,7 +277,7 @@ def test_step_on_the_cpu_runs_eagerly(arch):
     model, params = _model(arch)
     cache, token, lengths = _inputs(model)
     decode = steps.make_decode_step(model)
-    before = (steps.graph_captures, steps.graph_replays)
+    before = _graph_counts()
     tracing.stop()
     tracing.clear()
     tracing.start()
@@ -283,7 +287,7 @@ def test_step_on_the_cpu_runs_eagerly(arch):
             lengths = lengths + 1
     finally:
         tracing.stop()
-    assert (steps.graph_captures, steps.graph_replays) == before
+    assert _graph_counts() == before
     recs = [r for r in tracing.spans() if r["name"] == "step.decode"]
     tracing.clear()
     assert [r["attrs"] for r in recs] == [{"graphed": False}] * 3

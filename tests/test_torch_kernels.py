@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro_torch.core.graph import TensorSpec
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -149,11 +150,13 @@ def test_ssd_scan_no_nan_from_large_decay():
 
 
 def test_wrappers_on_cpu_leave_launch_counters():
-    fa_mod.launches = ssd_mod.launches = 0
+    before = tracing.counters()
     x = torch.randn(1, 64, 2, 16)
     flash_attention(x, x, x)
     ssd_scan(x, x.mean(dim=-1), x[..., :8], x[..., :8], chunk=32)
-    assert fa_mod.launches == 0 and ssd_mod.launches == 0
+    spent = tracing.counters() - before
+    assert spent["flash_attention_launches"] == 0
+    assert spent["ssd_scan_launches"] == 0
 
 
 def test_wrappers_trace_on_meta():

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.core import (Link, NetworkModel, Resource, Scission,
                               TensorSpec, TimingProvider, fuse_blocks,
                               linear_graph)
@@ -21,9 +21,6 @@ from repro_torch.core.resources import CLOUD_VM
 from repro_torch.kernels import (KernelAutotuner, _build,
                                  decode_attention_node, flash_attention_node,
                                  ssd_scan_node)
-from repro_torch.kernels import decode_attention as da_mod
-from repro_torch.kernels import flash_attention as fa_mod
-from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.launch import serve, train
 from repro_torch.models import DecoderLM, build_model, cnn_zoo, get_config
 from repro_torch.runtime import DagPipelineExecutor, PipelineExecutor
@@ -50,6 +47,17 @@ def test_port_imports_no_jax_and_no_reference(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes",
                                    "msgpack"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_only_tracing_keeps_module_state_by_global_statements():
+    """Counts and other bookkeeping live in :mod:`repro_torch.tracing`
+    (``tracing.count``): no other module of the port rebinds a module
+    global."""
+    bad = [str(p.relative_to(ROOT)) for p in SRC_FILES
+           if p.name != "tracing.py" and any(
+               isinstance(n, ast.Global)
+               for n in ast.walk(ast.parse(p.read_text())))]
+    assert not bad, f"global statements in {bad}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -176,7 +184,7 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, name):
 def test_cpu_scission_loop_launches_no_kernel():
     """The whole loop on the CPU takes the plain versions: no launch is
     counted and no CUDA library is built or loaded."""
-    fa_mod.launches = ssd_mod.launches = da_mod.launches = 0
+    before = tracing.counters()
     libs = dict(_build._libs)
     graph = _graph()
     res = [Resource("edge1", "edge", CLOUD_VM, speed_factor=2.0),
@@ -197,7 +205,8 @@ def test_cpu_scission_loop_launches_no_kernel():
     for blk in fuse_blocks(graph):
         whole = blk.make_callable()(whole)
     assert torch.equal(y, whole) and len(timings) == len(best.segments)
-    assert fa_mod.launches == ssd_mod.launches == da_mod.launches == 0
+    assert not any((tracing.counters() - before)[f"{k}_launches"] for k in
+                   ("flash_attention", "ssd_scan", "decode_attention"))
     assert _build._libs == libs
     assert all(r.vmem_limit is None and not r.pruned
                for r in tuner.records.values())

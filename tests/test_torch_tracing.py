@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.substrate import KernelFunction
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, get_config
 from repro_torch.optim import AdamWConfig, init_state
@@ -232,7 +233,7 @@ def test_train_step_spans(small_lm):
 @pytest.fixture
 def plain_launches(monkeypatch):
     """Each wrapper's ``_launch`` replaced by its plain forward, so that
-    the Functions run on the CPU as they do on the card."""
+    the Function runs on the CPU as it does on the card."""
     monkeypatch.setattr(
         fa_mod, "_launch", lambda q, k, v, causal, window, softcap, bq, bk:
         flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -245,7 +246,10 @@ def _flash_grads():
     g = torch.Generator().manual_seed(5)
     q, k, v = (torch.randn(1, 6, 2, 8, generator=g).requires_grad_()
                for _ in range(3))
-    o = fa_mod.FlashAttention.apply(q, k, v, True, None, None, None, None)
+    o = KernelFunction.apply(
+        "flash_attention",
+        lambda *t: fa_mod._launch(*t, True, None, None, None, None),
+        lambda *t: flash_attention_ref(*t, causal=True), q, k, v)
     torch.autograd.grad(o.sum(), (q, k, v))
 
 
@@ -255,7 +259,9 @@ def _ssd_grads():
     la = (-torch.rand(1, 8, 2, generator=g)).requires_grad_()
     b, c = (torch.randn(1, 8, 2, 2, generator=g).requires_grad_()
             for _ in range(2))
-    y, final = ssd_mod.SsdScan.apply(x, la, b, c, 4)
+    y, final = KernelFunction.apply(
+        "ssd_scan", lambda *t: ssd_mod._launch(*t, 4),
+        lambda *t: ssd_ref(*t, chunk=4), x, la, b, c)
     torch.autograd.grad(y.sum() + final.sum(), (x, la, b, c))
 
 

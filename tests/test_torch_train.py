@@ -37,11 +37,12 @@ from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import cosine_with_warmup as jcosine
 from repro.optim import init_state as jinit_state
 
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.substrate import KernelFunction
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, get_config
@@ -162,12 +163,12 @@ def test_example_runs(tmp_path):
     assert "step    2 loss=" in proc.stdout
 
 
-# -- the kernels' autograd Functions --------------------------------------
+# -- the kernels' autograd Function -----------------------------------------
 
 @pytest.fixture
 def plain_launches(monkeypatch):
     """Each wrapper's ``_launch`` replaced by its plain forward, so that
-    the Functions run on the CPU as they do on the card."""
+    the Function runs on the CPU as it does on the card."""
     monkeypatch.setattr(
         fa_mod, "_launch", lambda q, k, v, causal, window, softcap, bq, bk:
         flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -193,15 +194,19 @@ def test_flash_function_gradients(plain_launches, mask):
     sk = mask.pop("sk", 7)
     q, k, v = _leaves(rng, [(2, 7, 4, 8), (2, sk, 2, 8), (2, sk, 2, 8)],
                       torch.float32)
-    fa_mod.backward_launches = 0
-    o = fa_mod.FlashAttention.apply(q, k, v, mask.get("causal", True),
-                                    mask.get("window"), mask.get("softcap"),
-                                    None, None)
+    before = tracing.counters()
+    o = KernelFunction.apply(
+        "flash_attention",
+        lambda *t: fa_mod._launch(*t, mask.get("causal", True),
+                                  mask.get("window"), mask.get("softcap"),
+                                  None, None),
+        lambda *t: flash_attention_ref(*t, **mask), q, k, v)
     go = torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
     got = torch.autograd.grad(o, (q, k, v), go)
     want = torch.autograd.grad(flash_attention_ref(q, k, v, **mask),
                                (q, k, v), go)
-    assert fa_mod.backward_launches == 1
+    spent = tracing.counters() - before
+    assert spent["flash_attention_backward_launches"] == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w) and g.abs().sum() > 0
 
@@ -224,15 +229,17 @@ def test_ssd_function_gradients(plain_launches, outputs):
         return sum((p * torch.linspace(-1, 1, p.numel(), dtype=p.dtype)
                     .reshape(p.shape)).sum() for p in parts)
 
-    ssd_mod.backward_launches = 0
+    before = tracing.counters()
     inputs = (x, la, b1, c1)
     got = torch.autograd.grad(
-        run(lambda *a: ssd_mod.SsdScan.apply(*a, chunk), *inputs), inputs,
+        run(lambda *a: KernelFunction.apply(
+            "ssd_scan", lambda *t: ssd_mod._launch(*t, chunk),
+            lambda *t: ssd_ref(*t, chunk=chunk), *a), *inputs), inputs,
         allow_unused=True)
     want = torch.autograd.grad(
         run(lambda *a: ssd_ref(*a, chunk=chunk), *inputs), inputs,
         allow_unused=True)
-    assert ssd_mod.backward_launches == 1
+    assert (tracing.counters() - before)["ssd_scan_backward_launches"] == 1
     for name, g, w in zip("x log_a b c".split(), got, want):
         if outputs == "final" and name == "c":
             assert g is None and w is None      # c takes no part in it
