@@ -6,7 +6,9 @@ The engine owns:
 * a request queue with admission up to the batch width,
 * the prefill/decode steps — same-tick admissions share **one** prefill
   over a padded prompt bucket, instead of one call and a fresh batch-1
-  cache per request.
+  cache per request.  That prefill runs only the admitted rows, in the
+  first rows of a width-row scratch cache, unless the model holds a kind
+  that mixes rows (:data:`ROW_MIXING_KINDS`), which prefills every row.
 
 The model runs on its own device (``model.device``, the card unless the
 caller asked for the CPU), where the steps launch the hand-written kernels:
@@ -19,10 +21,12 @@ earlier admission's rows gives the same result as the reference's zeros).
 
 Spans (:mod:`..tracing`): ``engine.step`` per loop iteration
 (``admitted``, ``rows``), ``engine.admit`` per exact admission (``rid``,
-``prompt_tokens``) or per bucket (``rids``, ``prompt_tokens``, and
-``padded_tokens``: the width times the bucket the prefill ran), and
-``engine.readback`` around each decode step's copy of its tokens to the
-host.
+``prompt_tokens``) or per bucket (``rids``, ``prompt_tokens``, ``rows``:
+the rows the prefill ran, and ``padded_tokens``: those rows times the
+bucket, the tokens the prefill ran), and ``engine.readback`` around each
+decode step's copy of its tokens to the host.  Each bucketed prefill
+counts the width's rows it did not run in the counter
+``bucketed_prefill_rows_skipped``.
 """
 
 from __future__ import annotations
@@ -34,13 +38,13 @@ import torch
 
 from ..core.partition import PartitionConfig
 from ..launch.steps import make_decode_step, make_prefill_step
-from ..models.layers import tree_leaves
+from ..models.layers import tree_leaves, tree_map
 from .. import tracing
 from .metrics import ServingStats, mean, percentile
 from .queues import KVCachePool, PROMPT_BUCKETS, bucket_for
 from .requests import Request
 
-__all__ = ["RECURRENT_KINDS", "ServingEngine"]
+__all__ = ["RECURRENT_KINDS", "ROW_MIXING_KINDS", "ServingEngine"]
 
 # sub-layer kinds whose cache is a recurrent state rather than per-position
 # K/V: a padded prefill would fold the padding into the state irreversibly,
@@ -49,6 +53,15 @@ __all__ = ["RECURRENT_KINDS", "ServingEngine"]
 # visible — the per-row cache_len masks them, and each position is
 # overwritten by the real token before cache_len reaches it)
 RECURRENT_KINDS = frozenset({"mamba2", "mlstm", "slstm"})
+
+# sub-layer kinds under which a batch's rows are not independent: the MoE
+# layers route the flattened batch's tokens in groups of up to
+# moe_group_size, each expert with a capacity per group, so with a bucket
+# under the group size a group spans rows and padding rows take capacity
+# from real ones.  Models holding one prefill each bucket at the full width,
+# padding rows included, as the reference engine does; every other model
+# prefills only the admitted rows.
+ROW_MIXING_KINDS = frozenset({"moe"})
 
 
 class ServingEngine:
@@ -85,10 +98,11 @@ class ServingEngine:
         self.pool = KVCachePool(model, width, max_len)
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
+        kinds = set(getattr(self.cfg, "group_kinds", ()) or ())
         if prompt_buckets == "auto":
-            kinds = set(getattr(self.cfg, "group_kinds", ()) or ())
             prompt_buckets = None if kinds & RECURRENT_KINDS \
                 else PROMPT_BUCKETS
+        self._mixes_rows = bool(kinds & ROW_MIXING_KINDS)
         if prompt_buckets is not None:
             # clip to the cache length; always keep one bucket that covers
             # the longest admissible prompt
@@ -116,9 +130,12 @@ class ServingEngine:
         """Run the decode step and the prefill bucket(s) the queued
         requests will need (the smallest bucket when the queue is empty)
         once, so that the next :meth:`run`'s :class:`ServingStats` measure
-        serving, not the kernels' build and first launches.  Idempotent;
-        it writes only the scratch cache and fresh caches, so no engine
-        state changes."""
+        serving, not the kernels' build and first launches.  Each bucket
+        runs at every row count an admission can prefill: 1 to the width,
+        widest first (the allocator's blocks then serve the narrower
+        calls), or the width alone for a model with a row-mixing kind.
+        Idempotent; it writes only the scratch cache and fresh caches, so
+        no engine state changes."""
         self._decode(self.params, self._scratch_cache(),
                      self._tensor(self._next_tok),
                      self._tensor(self.pool.lengths))
@@ -138,10 +155,12 @@ class ServingEngine:
                                   for r in self.queue if len(r.prompt) > 1})
             else:
                 buckets = [min(self.prompt_buckets)]
+            rows = [self.width] if self._mixes_rows \
+                else range(self.width, 0, -1)
             for b in buckets:
-                self._prefill(self.params, self._scratch_cache(),
-                              {"tokens": self._tensor(
-                                  np.zeros((self.width, b)))})
+                for n in rows:
+                    self._prefill(self.params, self._scratch_rows(n),
+                                  {"tokens": self._tensor(np.zeros((n, b)))})
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -183,6 +202,12 @@ class ServingEngine:
                                                   max_len=self.max_len)
         return self._scratch
 
+    def _scratch_rows(self, n: int):
+        """The scratch cache's first ``n`` rows: views of axis 1 of every
+        leaf, so each layer's cache is one contiguous (n, max_len, ...)
+        block that a prefill writes in place."""
+        return tree_map(lambda a: a[:, :n], self._scratch_cache())
+
     def _admit(self) -> int:
         """Admit what the free slots take; returns how many."""
         batch: list[tuple[Request, int]] = []
@@ -220,20 +245,31 @@ class ServingEngine:
 
     def _admit_bucketed(self, batch: list[tuple[Request, int]]) -> None:
         """One prefill for every same-tick admission: prompts minus their
-        last token are right-padded into the smallest covering bucket
-        (fixed batch width), the resulting cache rows are scattered into
-        the admitted slots, and the *last* prompt token becomes each slot's
-        first decode input — the next decode step then produces the first
-        generated token from logits identical to an exact prefill's last
-        position (causal attention never sees the right padding, and the
-        per-row cache_len masks the padded cache positions until real
-        tokens overwrite them).
+        last token are right-padded into the smallest covering bucket, the
+        resulting cache rows are scattered into the admitted slots, and the
+        *last* prompt token becomes each slot's first decode input — the
+        next decode step then produces the first generated token from
+        logits identical to an exact prefill's last position (causal
+        attention never sees the right padding, and the per-row cache_len
+        masks the padded cache positions until real tokens overwrite them).
 
-        The prefill writes rows ``[0, bucket)`` of the scratch cache in
-        place, and its attention reads only the rows it wrote; rows past the
-        bucket may hold an earlier admission's keys, which are scattered
-        into the slots with the rest but lie past each slot's length, so
-        they are masked until overwritten, as the padding is."""
+        The prefill runs ``n = len(batch)`` rows, one per admission, in the
+        first ``n`` rows of the scratch cache (:meth:`_scratch_rows`): the
+        rows of a dense decoder do not interact, so each admitted row's
+        logits and K/V are those of a width-row prefill.  A model with a
+        row-mixing kind (:data:`ROW_MIXING_KINDS`) runs all ``width`` rows
+        instead, token-0 padding rows included, as the reference does.
+        The span's ``rows`` is ``n`` and its ``padded_tokens`` ``n`` times
+        the bucket, the tokens the prefill ran; the counter
+        ``bucketed_prefill_rows_skipped`` adds ``width - n``.
+
+        The prefill writes positions ``[0, bucket)`` of its rows in place,
+        and its attention reads only the positions it wrote; positions past
+        the bucket may hold an earlier admission's keys, which are
+        scattered into the slots with the rest but lie past each slot's
+        length, so they are masked until overwritten, as the padding is.
+        Scratch rows past ``n`` may hold an earlier admission's keys too;
+        no prefill reads them and they are never scattered."""
         now = time.perf_counter()
         pre = max(len(req.prompt) - 1 for req, _ in batch)
         with tracing.span("engine.admit", rids=[req.rid for req, _ in batch],
@@ -241,11 +277,13 @@ class ServingEngine:
                                             for req, _ in batch)) as sp:
             if pre > 0:
                 bucket = bucket_for(pre, self.prompt_buckets)
-                sp.set(padded_tokens=self.width * bucket)
-                toks = np.zeros((self.width, bucket), np.int32)
+                n = self.width if self._mixes_rows else len(batch)
+                sp.set(rows=n, padded_tokens=n * bucket)
+                tracing.count("bucketed_prefill_rows_skipped", self.width - n)
+                toks = np.zeros((n, bucket), np.int32)
                 for j, (req, _) in enumerate(batch):
                     toks[j, :len(req.prompt) - 1] = req.prompt[:-1]
-                _, cache = self._prefill(self.params, self._scratch_cache(),
+                _, cache = self._prefill(self.params, self._scratch_rows(n),
                                          {"tokens": self._tensor(toks)})
                 self._scatter_rows(cache, rows=list(range(len(batch))),
                                    slots=[slot for _, slot in batch])
@@ -257,7 +295,7 @@ class ServingEngine:
 
     def _scatter_rows(self, src_cache, rows: list[int],
                       slots: list[int]) -> None:
-        """Copy batch rows ``rows`` of a width-batch cache into pool slots
+        """Copy batch rows ``rows`` of a scratch cache into pool slots
         ``slots`` (batch lives at axis 1 of every cache leaf, after the
         layer-stack axis)."""
         rows_ix = self._tensor(rows).long()

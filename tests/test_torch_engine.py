@@ -10,8 +10,9 @@ the MoE models qwen2-moe-a2.7b and granite-moe-3b-a800m cut to 8 experts,
 top-2, groups of 64) and on the exact path (a reduced zamba2-2.7b, Mamba-2
 with a shared attention block, and a reduced xlstm-125m, mLSTM and
 sLSTM).  The port's prefill writes the bucketed path's scratch cache in
-place; two admission ticks whose buckets differ must still give the tokens
-of one-at-a-time greedy decoding.
+place, in as many of its rows as the tick admitted (all of them for the MoE
+models); two admission ticks whose buckets and rows differ must still give
+the tokens of one-at-a-time greedy decoding.
 """
 
 import jax
@@ -25,6 +26,7 @@ from repro.models import get_config as jax_config
 from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 
+from repro_torch import tracing
 from repro_torch.convert import to_torch
 from repro_torch.core.partition import PartitionConfig, Segment
 from repro_torch.models import build_model, get_config
@@ -185,18 +187,61 @@ def test_tokens_equal_the_jax_engine(arch, small_model):
 
 
 def test_bucketed_ticks_reuse_the_scratch_in_place(small_model):
-    """Two admission ticks over one scratch cache: the first admits long
-    prompts (bucket 32), the second short ones (bucket 16), so the scratch
-    still holds the first tick's rows past 16 when the second prefill
-    runs.  Every request must still get one-at-a-time greedy's tokens."""
+    """Two admission ticks over one scratch cache of width 3: the first
+    admits three long prompts (bucket 32, three rows), the second two
+    short ones (bucket 16, two rows), so the scratch still holds the first
+    tick's positions past 16 in the two rows the second prefill runs, and
+    its whole third row, which that prefill leaves out.  Every request
+    must still get one-at-a-time greedy's tokens."""
     cfg, model, params, _, _ = small_model
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (30, 25, 7, 12)]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (30, 25, 20, 7, 12)]
     want = [_greedy(model, params, p, 4, max_len=48) for p in prompts]
     eng, got = _serve(ServingEngine, Request, model, params, prompts, 4,
-                      width=2, max_len=48, prompt_buckets=(16, 32))
+                      width=3, max_len=48, prompt_buckets=(16, 32))
     assert eng._scratch is not None
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-moe-3b-a800m"])
+def test_bucketed_prefill_runs_the_admitted_rows(arch, small_model):
+    """Six requests for four slots: the first tick admits four, and the
+    two that finish first free a slot each for one more.  A dense model
+    prefills the rows admitted, 4, 1 and 1, and counts the 3 + 3 it left
+    out in ``bucketed_prefill_rows_skipped``, with one-at-a-time greedy's
+    tokens; a MoE model, whose expert groups span rows, prefills all 4
+    each time and skips none."""
+    if arch == "granite-8b":
+        _, model, params, _, _ = small_model
+    else:
+        model = build_model(get_config(arch).replace(**OVERRIDES[arch]),
+                            device="cpu")
+        params = model.init(seed=0, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, model.cfg.vocab, n)
+               for n in (9, 14, 5, 11, 7, 12)]
+    n_new = (2, 3, 6, 6, 4, 4)
+    eng = ServingEngine(model, params, width=4, max_len=32)
+    for i, (p, n) in enumerate(zip(prompts, n_new)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=n))
+    shapes, prefill = [], eng._prefill
+
+    def recorded(params, cache, batch):
+        shapes.append(tuple(batch["tokens"].shape))
+        return prefill(params, cache, batch)
+
+    eng._prefill = recorded
+    before = tracing.counters()["bucketed_prefill_rows_skipped"]
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    skipped = tracing.counters()["bucketed_prefill_rows_skipped"] - before
+    dense = arch == "granite-8b"
+    assert [rows for rows, _ in shapes] == ([4, 1, 1] if dense
+                                            else [4, 4, 4])
+    assert skipped == (6 if dense else 0)
+    assert [len(r.tokens) for r in done] == list(n_new)
+    if dense:
+        assert [r.tokens for r in done] == \
+            [_greedy(model, params, p, n) for p, n in zip(prompts, n_new)]
 
 
 def test_warmup_changes_no_engine_state(small_model):

@@ -196,11 +196,13 @@ def test_engine_spans(small_lm, buckets):
     else:
         assert [r["attrs"]["rids"] for r in admits] == [[0, 1], [2]]
         assert [r["attrs"]["prompt_tokens"] for r in admits] == [10, 5]
-        # the width times the bucket of each prefill: the longest prompt
-        # but its last token, 5 and 4, both in the smallest bucket
+        # the rows each prefill ran (the requests it admitted) times its
+        # bucket: the longest prompt but its last token, 5 and 4, both in
+        # the smallest bucket
         bucket = min(eng.prompt_buckets)
+        assert [r["attrs"]["rows"] for r in admits] == [2, 1]
         assert [r["attrs"]["padded_tokens"] for r in admits] == \
-            [2 * bucket, 2 * bucket]
+            [2 * bucket, 1 * bucket]
 
 
 def test_train_step_spans(small_lm):
